@@ -1,0 +1,26 @@
+"""Config registry of the port.
+
+Each module exposes ``config()`` (the exact published configuration) and
+``smoke_config()`` (a reduced same-family config for CPU tests).  Only the
+architectures ported so far are registered; any other name raises.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ["llama3_2_1b"]
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+_ALIASES["llama3.2-1b"] = "llama3_2_1b"
+
+
+def canonical(name: str) -> str:
+    return _ALIASES.get(name, name)
+
+
+def get_config(name: str, smoke: bool = False):
+    arch = canonical(name)
+    if arch not in ARCHS:
+        raise NotImplementedError(f"{name}: not ported yet")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.smoke_config() if smoke else mod.config()

@@ -1,0 +1,173 @@
+"""Batched serving engine: continuous batching over the model's
+prefill/decode paths (counterpart of :mod:`repro.serve.engine`).
+
+Requests enter a queue; the engine admits them into free KV-cache slots
+(prompt prefill, right-padded to bucket sizes), then runs one batched
+decode step over all ``max_batch`` slots per iteration.  Slots free as
+requests finish and new requests are admitted immediately.
+
+The JAX engine submits each step to a warm ``repro.core`` Cluster and can
+publish ``request-*`` events; the port has no copy of that runtime yet, so
+its loop thread calls prefill and decode directly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models import model as model_lib
+from repro_torch.models.common import tree_map
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 16
+    eos_id: int = -1              # -1: run to max_new_tokens
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    submit_t: float = 0.0
+    finish_t: float = 0.0
+
+
+def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 1023) // 1024) * 1024
+
+
+class ServingEngine:
+    """Serves ``cfg`` with ``params`` (a port param tree on ``device``).
+
+    ``device`` defaults to the CUDA card and raises if there is none.
+    If the loop thread fails, every waiting request is released and
+    :meth:`stop` re-raises the error.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, max_batch: int = 8,
+                 max_len: int = 256,
+                 device: torch.device | str | None = None):
+        self.cfg = cfg
+        self.params = params
+        self.device = resolve(device)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.cache = model_lib.init_cache(cfg, max_batch, max_len,
+                                          device=self.device)
+        self.pos = np.zeros(max_batch, dtype=np.int32)    # next position
+        self._next_in = np.zeros(max_batch, dtype=np.int32)
+        self.active: list[Request | None] = [None] * max_batch
+        self.inbox: queue.Queue = queue.Queue()
+        self.n_decode_steps = 0
+        self.n_prefills = 0
+        self.n_generated = 0
+        self.error: BaseException | None = None
+        self._stop = threading.Event()
+        self._rid = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    # ------------------------------------------------------------------
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        if self.error is not None:
+            raise RuntimeError("serving loop failed") from self.error
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
+               eos_id: int = -1) -> Request:
+        self._rid += 1
+        req = Request(self._rid, np.asarray(prompt, np.int32),
+                      max_new_tokens, eos_id, submit_t=time.perf_counter())
+        self.inbox.put(req)
+        return req
+
+    # ------------------------------------------------------------------
+    def _admit(self) -> None:
+        with torch.inference_mode():  # thread-local: entered on this thread
+            for slot in range(self.max_batch):
+                if self.active[slot] is not None:
+                    continue
+                try:
+                    req = self.inbox.get_nowait()
+                except queue.Empty:
+                    return
+                # prefill prompt[:-1]; the last prompt token goes through
+                # the normal decode path, yielding the first generated token
+                # with a correctly positioned cache write.  Attention caches
+                # mask by length, so bucketed right-padding is safe.
+                s = len(req.prompt)
+                if s > 1:
+                    bucket = min(_bucket(s - 1), self.max_len)
+                    toks = np.zeros((1, bucket), np.int32)
+                    toks[0, :s - 1] = req.prompt[:-1]  # right-pad
+                    one_cache = model_lib.init_cache(
+                        self.cfg, 1, self.max_len, device=self.device)
+                    _, one_cache = model_lib.prefill(
+                        self.params, self.cfg,
+                        torch.from_numpy(toks).to(self.device), one_cache)
+                    self.n_prefills += 1
+                    # in place, where the JAX engine does .at[:, slot].set
+                    tree_map(lambda g, p: g[:, slot].copy_(p[:, 0]),
+                             self.cache, one_cache)
+                self.pos[slot] = s - 1
+                self._next_in[slot] = int(req.prompt[-1])
+                self.active[slot] = req
+
+    def _step(self) -> bool:
+        """Admit, then one batched decode step; False when idle.  Runs
+        under the loop thread's inference mode."""
+        self._admit()
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return False
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        for i in live:
+            tokens[i, 0] = self._next_in[i]
+        logits, self.cache = model_lib.decode_step(
+            self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+            self.cache, torch.from_numpy(self.pos).to(self.device))
+        # greedy on the logits' own dtype; first index on ties
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        self.n_decode_steps += 1
+        for i in live:
+            req = self.active[i]
+            self.pos[i] += 1
+            req.out_tokens.append(int(nxt[i]))
+            self._next_in[i] = int(nxt[i])
+            self.n_generated += 1
+            done = (len(req.out_tokens) >= req.max_new_tokens
+                    or int(nxt[i]) == req.eos_id
+                    or self.pos[i] >= self.max_len - 1)
+            if done:
+                req.finish_t = time.perf_counter()
+                req.done.set()
+                self.active[i] = None
+        return True
+
+    def _loop(self) -> None:
+        try:
+            with torch.inference_mode():
+                while not self._stop.is_set():
+                    if not self._step():
+                        time.sleep(0.002)
+        except Exception as e:  # the loop's boundary: keep it for stop()
+            self.error = e
+            for r in self.active:
+                if r is not None:
+                    r.done.set()
+            while not self.inbox.empty():
+                self.inbox.get_nowait().done.set()

@@ -1,0 +1,135 @@
+"""The port's llama3.2-1b model against the JAX model, on JAX-initialised
+params moved over by repro_torch.bridge (smoke config, CPU)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+
+LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_models.py
+CACHE_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg_j = jconfigs.get_config("llama3.2-1b", smoke=True)
+    cfg_t = tconfigs.get_config("llama3.2-1b", smoke=True)
+    params_j = jmodel.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+def _tokens(seed, b, s, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+def test_config_matches_jax():
+    for smoke in (False, True):
+        cj = jconfigs.get_config("llama3.2-1b", smoke=smoke)
+        ct = tconfigs.get_config("llama3.2-1b", smoke=smoke)
+        fields = {f.name for f in dataclasses.fields(ct)}
+        assert fields <= {f.name for f in dataclasses.fields(cj)}
+        for name in fields - {"groups"}:
+            assert getattr(ct, name) == getattr(cj, name), name
+        assert ct.num_layers == cj.num_layers
+        assert [(g.repeat, len(g.pattern)) for g in ct.groups] == \
+            [(g.repeat, len(g.pattern)) for g in cj.groups]
+
+
+def test_unported_archs_raise():
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tconfigs.get_config("gemma_7b")
+
+
+def test_init_params_tree_matches_jax(setup):
+    cfg_j, cfg_t, params_j, _ = setup
+    gen = torch.Generator().manual_seed(0)
+    mine = bridge.params_to_numpy(tmodel.init_params(gen, cfg_t, "cpu"))
+    theirs = jax.tree.map(np.asarray, params_j)
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_forward_matches_jax(setup):
+    cfg_j, cfg_t, params_j, params_t = setup
+    toks = _tokens(0, 2, 32, cfg_t.vocab_size)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks))
+    got, aux = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks))
+    assert got.shape == (2, 32, cfg_t.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    assert float(aux["moe_aux_loss"]) == 0.0
+
+
+def test_prefill_decode_logits_and_caches_match_jax(setup):
+    cfg_j, cfg_t, params_j, params_t = setup
+    b, s = 2, 32
+    toks = _tokens(1, b, s, cfg_t.vocab_size)
+    cache_j = jmodel.init_cache(cfg_j, b, s + 4)
+    cache_t = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    pre_j, cache_j = jmodel.prefill(params_j, cfg_j,
+                                    jnp.asarray(toks[:, :-1]), cache_j)
+    pre_t, cache_t = tmodel.prefill(params_t, cfg_t,
+                                    torch.from_numpy(toks[:, :-1]), cache_t)
+    np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j), **LOGIT_TOL)
+    pos = np.full((b,), s - 1, np.int32)
+    dec_j, cache_j = jmodel.decode_step(params_j, cfg_j,
+                                        jnp.asarray(toks[:, -1:]), cache_j,
+                                        jnp.asarray(pos))
+    dec_t, cache_t = tmodel.decode_step(params_t, cfg_t,
+                                        torch.from_numpy(toks[:, -1:]),
+                                        cache_t, torch.from_numpy(pos))
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), **LOGIT_TOL)
+    mine = bridge.params_to_numpy(cache_t)
+    theirs = jax.tree.map(np.asarray, cache_j)
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for a, b_ in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        np.testing.assert_allclose(a, b_, **CACHE_TOL)
+
+
+def test_prefill_decode_matches_forward(setup):
+    """prefill(t[:-1]) + one decode step gives the last forward logits
+    (tests/test_models.py::test_prefill_decode_matches_forward)."""
+    _, cfg_t, _, params_t = setup
+    b, s = 2, 32
+    toks = torch.from_numpy(_tokens(2, b, s, cfg_t.vocab_size))
+    full, _ = tmodel.forward(params_t, cfg_t, toks)
+    cache = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    _, cache = tmodel.prefill(params_t, cfg_t, toks[:, :-1], cache)
+    dec, _ = tmodel.decode_step(params_t, cfg_t, toks[:, -1:], cache,
+                                torch.full((b,), s - 1, dtype=torch.int32))
+    np.testing.assert_allclose(dec[:, 0].numpy(), full[:, -1].numpy(),
+                               **LOGIT_TOL)
+
+
+def test_bridge_round_trips_bf16_tree():
+    cfg = dataclasses.replace(
+        jconfigs.get_config("llama3.2-1b", smoke=True), dtype="bfloat16")
+    tree = jax.tree.map(np.asarray,
+                        jmodel.init_params(jax.random.PRNGKey(3), cfg))
+    assert jax.tree.leaves(tree)[0].dtype.name == "bfloat16"
+    moved = bridge.params_from_numpy(tree, "cpu")
+    leaves = jax.tree.leaves(moved)
+    assert all(t.dtype == torch.bfloat16 for t in leaves)
+    assert isinstance(moved["groups"][0]["slots"], tuple)
+    back = bridge.params_to_numpy(moved)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == np.uint16
+        np.testing.assert_array_equal(a, b.view(np.uint16))
+    # the bits are the values: bf16 -> f32 agrees on both sides
+    t0 = leaves[0].float().numpy()
+    np.testing.assert_array_equal(t0, jax.tree.leaves(tree)[0].astype(
+        np.float32))
