@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["llama3_2_1b"]
+ARCHS = ["llama3_2_1b", "zamba2_2_7b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 _ALIASES["llama3.2-1b"] = "llama3_2_1b"
+_ALIASES["zamba2-2.7b"] = "zamba2_2_7b"
 
 
 def canonical(name: str) -> str:

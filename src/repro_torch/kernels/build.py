@@ -41,6 +41,11 @@ SIGNATURES = {
         # q, k, v, lengths, o, dtype, B, T, H, KV, HD, window, scale,
         # softcap, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
+    "mamba_chunk_scan": (
+        "mamba_chunk_scan_fwd",
+        # x, dt, a, b, c, d, h0 (or null), y, h_final, dtype, B, S, NH,
+        # HD, NS, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -131,13 +136,16 @@ def entry(name: str):
     return getattr(load(name), SIGNATURES[name][0])
 
 
-# head dims the kernels are instantiated for (csrc/*.cu templates)
-HEAD_DIMS = (32, 64, 128)
+# head dims the attention kernels are instantiated for (csrc/*.cu templates)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
-def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
-    ``ndim`` dims in a dtype the kernel takes (``dtype`` if given)."""
+def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None, *,
+                  aligned: bool = True) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``ndim`` dims in a
+    dtype the kernel takes (``dtype`` if given), 16-byte aligned unless
+    ``aligned`` is False (for operands the kernel reads element by
+    element)."""
     if t.device.type != "cuda":
         raise ValueError(f"{kernel}: {arg} is on {t.device}, not CUDA")
     if t.dim() != ndim:
@@ -151,7 +159,7 @@ def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None) -> None:
         raise ValueError(f"{kernel}: {arg} dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {arg} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{kernel}: {arg} must be 16-byte aligned")
 
 

@@ -1,5 +1,5 @@
-// Helpers shared by the attention kernels: element conversion, vector
-// loads of N consecutive elements, warp reductions.
+// Helpers shared by the kernels: element conversion, vector loads of N
+// consecutive elements, warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,6 +52,19 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float* in) {
 #pragma unroll
   for (int i = 0; i < N; ++i) e[i] = from_float<T>(in[i]);
   *reinterpret_cast<R*>(p) = r;
+}
+
+// N consecutive floats from shared memory: one vector load where N is 1, 2
+// or 4 (the address is then aligned to N floats), else N scalar loads
+// (head_dim 80 gives a lane 3 dims).
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float* out) {
+  if constexpr (N == 1 || N == 2 || N == 4) {
+    load_vec<float, N>(p, out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -27,6 +27,11 @@
 //  * A (B, KV) = (8, 8) grid fills only 64 of the card's 132 SMs, which caps
 //    the bandwidth it can reach.  Splitting T across CTAs with a second
 //    combining pass (flash-decoding) is left to a later change.
+//  * Head dims 32, 64, 80 and 128.  Keys are read at the true head dim in
+//    16-byte vectors (an 80-dim bf16 row is ten); in the PV product each
+//    lane owns HDP / 32 value dims, HDP being the head dim rounded up to
+//    whole lanes (96 for 80), and dims past the head dim are neither
+//    loaded nor stored.
 
 #include "common.cuh"
 
@@ -50,7 +55,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
               T* __restrict__ o, int T_len, int KV, int window, float scale,
               float softcap) {
-  constexpr int DPL = HD / 32;         // value dims owned by one lane
+  constexpr int HDP = (HD + 31) / 32 * 32;  // head dim in whole lanes
+  constexpr int DPL = HDP / 32;        // value dims owned by one lane
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte key load
 
   extern __shared__ __align__(16) float smem[];
@@ -129,7 +135,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
     for (int j = 0; j < nj; ++j) {
       float vf[DPL];
-      load_vec<T, DPL>(vr + j * rs, vf);
+      if constexpr (HDP == HD) {
+        load_vec<T, DPL>(vr + j * rs, vf);
+      } else {
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          vf[i] = lane * DPL + i < HD ? to_float(vr[j * rs + i]) : 0.f;
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = sPw[g * 32 + j];
@@ -149,7 +161,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      sA[(warp * G + g) * HD + lane * DPL + i] = acc[g][i];
+      if (lane * DPL + i < HD)
+        sA[(warp * G + g) * HD + lane * DPL + i] = acc[g][i];
   }
   __syncthreads();
   for (int idx = tid; idx < G * HD; idx += THREADS) {
@@ -227,6 +240,9 @@ cudaError_t launch_hd(int HD, int G, const void* q, const void* k,
                              scale, softcap, st);
     case 64:
       return launch_g<T, 64>(G, q, k, v, lengths, o, B, T_len, KV, window,
+                             scale, softcap, st);
+    case 80:
+      return launch_g<T, 80>(G, q, k, v, lengths, o, B, T_len, KV, window,
                              scale, softcap, st);
     case 128:
       return launch_g<T, 128>(G, q, k, v, lengths, o, B, T_len, KV, window,

@@ -28,6 +28,13 @@
 //    the CTA's 4 warps x 8 query rows; scores and the PV product are fp32
 //    FMAs on the CUDA cores.  No wgmma, TMA or warp specialisation yet:
 //    moving both products onto the tensor cores is the next step.
+//  * Head dims 32, 64, 80 and 128.  In the PV product each lane owns
+//    HDP / 32 output dims, HDP being the head dim rounded up to whole
+//    lanes (96 for 80).  Q and K are staged at the true head dim (q.k runs
+//    over it in float4 steps); V is staged HDP wide with the pad columns
+//    zeroed once, and the pad output dims are never stored.  Global loads
+//    and stores stay at the true head dim: an 80-dim bf16 row is 160
+//    bytes, ten 16-byte vectors.
 
 #include "common.cuh"
 
@@ -42,12 +49,13 @@ constexpr int BQ = NWARPS * RPW;  // query rows per CTA
 
 template <int HD>
 struct Tile {
+  static constexpr int HDP = (HD + 31) / 32 * 32;  // head dim in whole lanes
   static constexpr int BK = HD <= 64 ? 64 : 32;  // kv rows per tile
   static constexpr int KS = HD + 4;   // padded fp32 row stride of sQ, sK
-  static constexpr int DPL = HD / 32;  // output dims owned by one lane
+  static constexpr int DPL = HDP / 32;  // output dims owned by one lane
   static constexpr int JPL = BK / 32;  // kv columns scored by one lane
   static constexpr size_t SMEM =
-      sizeof(float) * (BQ * KS + BK * KS + BK * HD + NWARPS * RPW * BK);
+      sizeof(float) * (BQ * KS + BK * KS + BK * HDP + NWARPS * RPW * BK);
 };
 
 template <typename T, int HD>
@@ -58,14 +66,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float softcap, int q_offset) {
   using C = Tile<HD>;
   constexpr int BK = C::BK, KS = C::KS, DPL = C::DPL, JPL = C::JPL;
+  constexpr int HDP = C::HDP;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int VPR = HD / VEC;        // 16-byte loads per row
 
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;             // [BQ][KS]
   float* sK = sQ + BQ * KS;     // [BK][KS]
-  float* sV = sK + BK * KS;     // [BK][HD]
-  float* sP = sV + BK * HD;     // [NWARPS * RPW][BK]
+  float* sV = sK + BK * KS;     // [BK][HDP]
+  float* sP = sV + BK * HDP;    // [NWARPS * RPW][BK]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -88,6 +97,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int e = 0; e < VEC; ++e) sQ[r * KS + c + e] = tmp[e];
+  }
+  if constexpr (HDP != HD) {  // V's pad columns: zero once, never rewritten
+    for (int i = tid; i < BK * (HDP - HD); i += THREADS)
+      sV[(i / (HDP - HD)) * HDP + HD + i % (HDP - HD)] = 0.f;
   }
 
   // kv range of this CTA: window start of its first row to the causal
@@ -126,7 +139,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         sK[r * KS + c + e] = tk[e];
-        sV[r * HD + c + e] = tv[e];
+        sV[r * HDP + c + e] = tv[e];
       }
     }
     __syncthreads();
@@ -193,7 +206,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float vv[4][DPL];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        load_vec<float, DPL>(&sV[(j + jj) * HD + lane * DPL], vv[jj]);
+        load_floats<DPL>(&sV[(j + jj) * HDP + lane * DPL], vv[jj]);
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const float4 pp =
@@ -214,7 +227,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float out[DPL];
 #pragma unroll
     for (int i = 0; i < DPL; ++i) out[i] = acc[r][i] * inv;
-    store_vec<T, DPL>(ob + row * qrs + lane * DPL, out);
+    if constexpr (HDP == HD) {
+      store_vec<T, DPL>(ob + row * qrs + lane * DPL, out);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i)
+        if (lane * DPL + i < HD)
+          ob[row * qrs + lane * DPL + i] = from_float<T>(out[i]);
+    }
   }
 }
 
@@ -249,6 +269,9 @@ cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
                            scale, softcap, q_offset, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, S, T_len, H, KV, causal, window,
+                           scale, softcap, q_offset, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, S, T_len, H, KV, causal, window,
                            scale, softcap, q_offset, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, T_len, H, KV, causal, window,

@@ -12,6 +12,8 @@ from repro_torch.kernels.decode_attention import \
     decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
+from repro_torch.kernels.mamba_chunk_scan import \
+    mamba_chunk_scan as _ssd_kernel
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -31,3 +33,9 @@ def decode_attention(q, k, v, *, lengths, window=None, softcap=None,
                                     softcap=softcap, scale=scale)
     return _decode_kernel(q, k, v, lengths=lengths, window=window,
                           softcap=softcap, scale=scale)
+
+
+def mamba_chunk_scan(x, dt, a, b, c, d, *, chunk=256, h0=None):
+    if x.device.type == "cpu":
+        return ref.mamba_chunk_scan(x, dt, a, b, c, d, chunk=chunk, h0=h0)
+    return _ssd_kernel(x, dt, a, b, c, d, chunk=chunk, h0=h0)

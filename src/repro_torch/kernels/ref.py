@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 These are the semantics contract, as :mod:`repro.kernels.ref` is for the
 JAX package: the CUDA kernels must match them within tolerance, and a
 CPU tensor given to :mod:`repro_torch.kernels.ops` runs them directly.
-The dtype points follow the JAX oracles: scores are computed in the input
-dtype, then softmax in fp32, and the probabilities are cast back to
-``v.dtype`` before the PV product.
+The dtype points follow the JAX oracles: attention scores are computed in
+the input dtype, then softmax in fp32, and the probabilities are cast back
+to ``v.dtype`` before the PV product; the SSD scan runs in fp32 and casts
+``y`` to ``x.dtype``.
 """
 from __future__ import annotations
 
@@ -107,3 +108,38 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bthd->bshd", p, v)
+
+
+def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+                     chunk: int = 256, h0: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD, sequential reference (exact recurrence).
+
+    x:  (B, S, NH, HD)   inputs per head
+    dt: (B, S, NH)       softplus-ed step sizes (already positive)
+    a:  (NH,)            negative decay rates (A = -exp(a_log))
+    b:  (B, S, NS)       input matrix (single group)
+    c:  (B, S, NS)       output matrix
+    d:  (NH,)            skip connection
+    h0: (B, NH, HD, NS)  initial state (zeros if None)
+    Returns (y: (B,S,NH,HD) in x.dtype, h_final: (B,NH,HD,NS) fp32).
+    ``chunk`` is accepted for the kernels' signature; the recurrence does
+    not depend on it.
+    """
+    bs, s, nh, hd = x.shape
+    ns = b.shape[-1]
+    h = (torch.zeros((bs, nh, hd, ns), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    a, d = a.float(), d.float()
+    ys = []
+    for t in range(s):
+        dtt = dtf[:, t]                                    # (B, NH)
+        decay = torch.exp(dtt * a[None])
+        dbx = torch.einsum("bh,bn,bhd->bhdn", dtt, bf[:, t], xf[:, t])
+        h = h * decay[..., None, None] + dbx
+        ys.append(torch.einsum("bhdn,bn->bhd", h, cf[:, t])
+                  + d[None, :, None] * xf[:, t])
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
+    return y.to(x.dtype), h

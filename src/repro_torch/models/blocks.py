@@ -1,15 +1,17 @@
 """Layer composition and the loop-over-layers group machinery.
 
-One *layer* = (pre-norm -> attention -> residual) + (pre-norm -> MLP ->
-residual).  A *group* repeats a pattern of layers whose params are stacked
-over the repeat axis, as in :mod:`repro.models.blocks`; a Python loop over
-that axis takes the place of ``lax.scan``.  Caches are written in place.
-``cfg.remat`` has no effect here (no backward in the serving path); the
-training port maps it to activation checkpointing.
+One *layer* = (pre-norm -> mixer block -> residual) + optional
+(pre-norm -> MLP -> residual).  A *group* repeats a pattern of layers whose
+params are stacked over the repeat axis, as in :mod:`repro.models.blocks`;
+a Python loop over that axis takes the place of ``lax.scan``.
+Weight-shared slots (zamba2's shared attention) are not stacked: every
+repeat uses the same params, but each repeat keeps its own cache.  Caches
+are written in place.  ``cfg.remat`` has no effect here (no backward in
+the serving path); the training port maps it to activation checkpointing.
 
-Ported: ``kind="attn"`` with ``mlp="glu"`` (gated or plain).  Not yet:
-the other mixers, MoE, pure-MLP layers, post-norms and weight-shared
-slots.
+Ported: mixers ``attn`` and ``mamba2`` and pure-MLP layers (``kind="none"``),
+with ``mlp="glu"`` (gated or plain) or ``"none"``.  Not yet: ``mla``,
+``mlstm``/``slstm``, ``cross_attn``, MoE and post-norms.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba2
 from repro_torch.models.common import rmsnorm, rmsnorm_init, tree_map
 from repro_torch.models.config import (GroupSpec, LayerSpec, ModelConfig,
                                        dtype_of)
@@ -26,12 +28,18 @@ from repro_torch.models.mlp import apply_mlp, init_mlp
 Params = Any
 
 
+_MIXER_INIT = {"attn": attention.init_attn, "mamba2": mamba2.init_mamba2}
+_CACHE_INIT = {"attn": attention.init_attn_cache,
+               "mamba2": mamba2.init_mamba_cache}
+
+
 def _check_supported(spec: LayerSpec) -> None:
-    if spec.kind != "attn" or spec.mlp != "glu":
+    if spec.kind not in (*_MIXER_INIT, "none") or \
+            spec.mlp not in ("glu", "none"):
         raise NotImplementedError(
             f"layer kind={spec.kind!r} mlp={spec.mlp!r}: not ported yet")
-    if spec.post_norms or spec.shared:
-        raise NotImplementedError("post_norms / shared slots: not ported yet")
+    if spec.post_norms:
+        raise NotImplementedError("post_norms: not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -42,31 +50,42 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device: torch.device) -> Params:
     _check_supported(spec)
     dt = dtype_of(cfg)
-    return {
-        "pre_norm": rmsnorm_init(cfg.d_model, dt, device),
-        "mixer": attention.init_attn(gen, cfg, spec, device),
-        "pre_mlp_norm": rmsnorm_init(cfg.d_model, dt, device),
-        "mlp": init_mlp(gen, cfg, device),
-    }
+    p: dict = {}
+    if spec.kind != "none":
+        p["pre_norm"] = rmsnorm_init(cfg.d_model, dt, device)
+        p["mixer"] = _MIXER_INIT[spec.kind](gen, cfg, spec, device)
+    if spec.mlp != "none":
+        p["pre_mlp_norm"] = rmsnorm_init(cfg.d_model, dt, device)
+        p["mlp"] = init_mlp(gen, cfg, device)
+    return p
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype: torch.dtype,
                      device: torch.device) -> Params:
     _check_supported(spec)
-    return attention.init_attn_cache(cfg, spec, batch, max_len, dtype, device)
+    if spec.kind == "none":
+        return {}
+    return _CACHE_INIT[spec.kind](cfg, spec, batch, max_len, dtype, device)
 
 
 def apply_layer(params: Params, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, ctx: dict, cache: Params | None
                 ) -> tuple[torch.Tensor, Params | None]:
     _check_supported(spec)
-    h = rmsnorm(params["pre_norm"], x, eps=cfg.norm_eps)
-    h, new_cache = attention.apply_attn(
-        params["mixer"], cfg, spec, h, ctx["positions"], cache)
-    x = x + h
-    h = rmsnorm(params["pre_mlp_norm"], x, eps=cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], cfg, h), new_cache
+    if spec.kind != "none":
+        h = rmsnorm(params["pre_norm"], x, eps=cfg.norm_eps)
+        if spec.kind == "attn":
+            h, cache = attention.apply_attn(
+                params["mixer"], cfg, spec, h, ctx["positions"], cache)
+        else:
+            h, cache = mamba2.apply_mamba2(params["mixer"], cfg, spec, h,
+                                           cache)
+        x = x + h
+    if spec.mlp != "none":
+        h = rmsnorm(params["pre_mlp_norm"], x, eps=cfg.norm_eps)
+        x = x + apply_mlp(params["mlp"], cfg, h)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +96,9 @@ def init_group(gen: torch.Generator, cfg: ModelConfig, gspec: GroupSpec,
                device: torch.device) -> Params:
     slot_params = []
     for spec in gspec.pattern:
+        if spec.shared:
+            slot_params.append(init_layer(gen, cfg, spec, device))
+            continue
         reps = [init_layer(gen, cfg, spec, device)
                 for _ in range(gspec.repeat)]
         slot_params.append(tree_map(lambda *a: torch.stack(a), *reps))
@@ -98,13 +120,15 @@ def apply_group(params: Params, cfg: ModelConfig, gspec: GroupSpec,
                 x: torch.Tensor, ctx: dict, cache: Params | None
                 ) -> tuple[torch.Tensor, Params | None]:
     """Run the group's repeats in order.  ``cache`` (stacked over the
-    repeat axis) is updated in place through per-repeat views and
-    returned."""
+    repeat axis for every slot, shared ones included) is updated in place
+    through per-repeat views and returned."""
     for r in range(gspec.repeat):
         for i, spec in enumerate(gspec.pattern):
-            p = tree_map(lambda a: a[r], params["slots"][i])
+            p = params["slots"][i]
+            if not spec.shared:
+                p = tree_map(lambda a: a[r], p)
             c = None
-            if cache is not None:
+            if cache is not None and cache["slots"][i]:
                 c = tree_map(lambda a: a[r], cache["slots"][i])
             x, _ = apply_layer(p, cfg, spec, x, ctx, c)
     return x, cache

@@ -6,8 +6,10 @@ Exposes the three execution paths of :mod:`repro.models.model`:
   * ``decode_step``  - one token against the cache
 
 ``init_params`` and ``init_cache`` run on the CUDA card unless ``device``
-is given.  Caches are updated in place: ``prefill`` and ``decode_step``
-return the cache they were given.  Not ported yet: multi-codebook streams
+is given.  The cache is a list (one entry per group) of per-slot trees
+stacked over the repeat axis: attention slots hold ``k``/``v``, mamba2
+slots ``conv`` and the fp32 ``ssm`` state.  Caches are updated in place:
+``prefill`` and ``decode_step`` return the cache they were given.  Not ported yet: multi-codebook streams
 (musicgen) and image embeddings (VLM).
 """
 from __future__ import annotations

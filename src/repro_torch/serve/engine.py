@@ -1,9 +1,10 @@
 """Batched serving engine: continuous batching over the model's
 prefill/decode paths (counterpart of :mod:`repro.serve.engine`).
 
-Requests enter a queue; the engine admits them into free KV-cache slots
-(prompt prefill, right-padded to bucket sizes), then runs one batched
-decode step over all ``max_batch`` slots per iteration.  Slots free as
+Requests enter a queue; the engine admits them into free cache slots
+(prompt prefill, right-padded to bucket sizes for attention archs, at the
+exact length for recurrent ones), then runs one batched decode step over
+all ``max_batch`` slots per iteration.  Slots free as
 requests finish and new requests are admitted immediately.
 
 The JAX engine submits each step to a warm ``repro.core`` Cluster and can
@@ -45,6 +46,14 @@ def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024)) -> int:
         if n <= b:
             return b
     return ((n + 1023) // 1024) * 1024
+
+
+def prefill_length(cfg: ModelConfig, n: int, max_len: int) -> int:
+    """Tokens the engine prefills for ``n`` prompt tokens.  Recurrent
+    state must not see padding, so recurrent archs take the exact length;
+    attention caches mask by length, so bucketed right-padding is safe."""
+    recurrent = cfg.mamba is not None or cfg.xlstm is not None
+    return n if recurrent else min(_bucket(n), max_len)
 
 
 class ServingEngine:
@@ -107,12 +116,11 @@ class ServingEngine:
                     return
                 # prefill prompt[:-1]; the last prompt token goes through
                 # the normal decode path, yielding the first generated token
-                # with a correctly positioned cache write.  Attention caches
-                # mask by length, so bucketed right-padding is safe.
+                # with a correctly positioned cache write.
                 s = len(req.prompt)
                 if s > 1:
-                    bucket = min(_bucket(s - 1), self.max_len)
-                    toks = np.zeros((1, bucket), np.int32)
+                    n = prefill_length(self.cfg, s - 1, self.max_len)
+                    toks = np.zeros((1, n), np.int32)
                     toks[0, :s - 1] = req.prompt[:-1]  # right-pad
                     one_cache = model_lib.init_cache(
                         self.cfg, 1, self.max_len, device=self.device)

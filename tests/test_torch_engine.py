@@ -12,17 +12,19 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.serve import engine as engine_lib  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, _bucket  # noqa: E402
 
 
-def _jax_generate(cfg, params, prompt, n_new):
+def _jax_generate(cfg, params, prompt, n_new, prefill=jmodel.prefill,
+                  decode_step=jmodel.decode_step):
     cache = jmodel.init_cache(cfg, 1, 256)
     toks = jnp.asarray(prompt[None, :-1], jnp.int32)
     if toks.shape[1]:
-        _, cache = jmodel.prefill(params, cfg, toks, cache)
+        _, cache = prefill(params, cfg, toks, cache)
     cur, pos, out = int(prompt[-1]), len(prompt) - 1, []
     for _ in range(n_new):
-        logits, cache = jmodel.decode_step(
+        logits, cache = decode_step(
             params, cfg, jnp.asarray([[cur]], jnp.int32), cache,
             jnp.asarray([pos], jnp.int32))
         cur = int(jnp.argmax(logits[0, 0]))
@@ -78,3 +80,47 @@ def test_engine_recycles_slots_and_stops_at_max_len():
 def test_bucket():
     assert [_bucket(n) for n in (1, 16, 17, 512, 1025)] == \
         [16, 16, 32, 512, 2048]
+
+
+def test_zamba2_engine_matches_jax_reference_generation():
+    """Mamba state and the shared attention slot's per-repeat caches through
+    the engine: prompts of 9 and 30 tokens would be bucketed to 16 and 32
+    for an attention arch, and 3 requests over 2 slots reuse a slot."""
+    cfg_j = jconfigs.get_config("zamba2-2.7b", smoke=True)
+    cfg_t = tconfigs.get_config("zamba2-2.7b", smoke=True)
+    params_j = jmodel.init_params(jax.random.PRNGKey(2), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    prefill = jax.jit(jmodel.prefill, static_argnums=1)
+    decode_step = jax.jit(jmodel.decode_step, static_argnums=1)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg_t.vocab_size, size=n) for n in (9, 30, 17)]
+    eng, reqs = _serve(cfg_t, params_t, prompts, 6, max_batch=2,
+                       max_len=256)
+    for p, r in zip(prompts, reqs):
+        assert r.out_tokens == _jax_generate(cfg_j, params_j, p, 6,
+                                             prefill, decode_step)
+    assert eng.n_prefills == 3 and eng.n_generated == 18
+
+
+def test_recurrent_archs_prefill_exact_prompt_length(monkeypatch):
+    zamba = tconfigs.get_config("zamba2-2.7b", smoke=True)
+    llama = tconfigs.get_config("llama3.2-1b", smoke=True)
+    assert [engine_lib.prefill_length(zamba, n, 64) for n in (1, 8, 29)] \
+        == [1, 8, 29]
+    assert [engine_lib.prefill_length(llama, n, 64) for n in (1, 8, 29, 99)] \
+        == [16, 16, 32, 64]
+    from repro_torch.models import model as tmodel
+    seen = []
+    real = tmodel.prefill
+
+    def spy(params, cfg, tokens, cache):
+        seen.append(tokens.shape[1])
+        return real(params, cfg, tokens, cache)
+
+    monkeypatch.setattr(engine_lib.model_lib, "prefill", spy)
+    params = tmodel.init_params(torch.Generator().manual_seed(0), zamba,
+                                device="cpu")
+    prompts = [np.arange(n) % zamba.vocab_size for n in (9, 30)]
+    _serve(zamba, params, prompts, 2, max_batch=2, max_len=64)
+    assert sorted(seen) == [8, 29]

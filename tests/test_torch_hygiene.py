@@ -35,7 +35,7 @@ def test_port_has_sources():
     assert len(PORT_FILES) > 10
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "flash_attention.cu", "decode_attention.cu"}
+        "flash_attention.cu", "decode_attention.cu", "mamba_chunk_scan.cu"}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

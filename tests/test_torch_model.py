@@ -1,6 +1,8 @@
-"""The port's llama3.2-1b model against the JAX model, on JAX-initialised
-params moved over by repro_torch.bridge (smoke config, CPU)."""
+"""The port's models (llama3.2-1b, zamba2-2.7b) against the JAX models, on
+JAX-initialised params moved over by repro_torch.bridge (smoke configs,
+CPU)."""
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -36,16 +38,21 @@ def _tokens(seed, b, s, vocab):
 
 
 def test_config_matches_jax():
-    for smoke in (False, True):
-        cj = jconfigs.get_config("llama3.2-1b", smoke=smoke)
-        ct = tconfigs.get_config("llama3.2-1b", smoke=smoke)
+    for arch, smoke in itertools.product(("llama3.2-1b", "zamba2-2.7b"),
+                                         (False, True)):
+        cj = jconfigs.get_config(arch, smoke=smoke)
+        ct = tconfigs.get_config(arch, smoke=smoke)
         fields = {f.name for f in dataclasses.fields(ct)}
         assert fields <= {f.name for f in dataclasses.fields(cj)}
-        for name in fields - {"groups"}:
+        for name in fields - {"groups", "mamba"}:
             assert getattr(ct, name) == getattr(cj, name), name
+        assert dataclasses.asdict(ct)["groups"] == \
+            dataclasses.asdict(cj)["groups"]
+        assert (ct.mamba is None) == (cj.mamba is None)
+        if ct.mamba is not None:
+            assert dataclasses.asdict(ct.mamba) == \
+                dataclasses.asdict(cj.mamba)
         assert ct.num_layers == cj.num_layers
-        assert [(g.repeat, len(g.pattern)) for g in ct.groups] == \
-            [(g.repeat, len(g.pattern)) for g in cj.groups]
 
 
 def test_unported_archs_raise():
@@ -133,3 +140,130 @@ def test_bridge_round_trips_bf16_tree():
     t0 = leaves[0].float().numpy()
     np.testing.assert_array_equal(t0, jax.tree.leaves(tree)[0].astype(
         np.float32))
+
+
+# ---------------------------------------------------------------------------
+# zamba2: mamba2 layers and a weight-shared attention+GLU slot
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def zsetup():
+    cfg_j = jconfigs.get_config("zamba2-2.7b", smoke=True)
+    cfg_t = tconfigs.get_config("zamba2-2.7b", smoke=True)
+    params_j = jmodel.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+def test_zamba2_bridge_round_trips_params_and_cache(zsetup):
+    """init_params and init_cache give JAX's trees (keys, shapes, dtypes:
+    fp32 a_log/dt_bias/d_skip and ssm state, unstacked shared slot), and
+    a bridged JAX tree comes back bit for bit."""
+    cfg_j, cfg_t, params_j, params_t = zsetup
+    shared = cfg_t.groups[0].pattern.index(
+        next(p for p in cfg_t.groups[0].pattern if p.shared))
+    assert params_t["groups"][0]["slots"][shared]["mixer"]["wq"].dim() == 2
+    mine_p = bridge.params_to_numpy(
+        tmodel.init_params(torch.Generator().manual_seed(0), cfg_t, "cpu"))
+    mine_c = bridge.params_to_numpy(
+        tmodel.init_cache(cfg_t, 2, 24, device="cpu"))
+    for mine, theirs in ((mine_p, params_j),
+                         (mine_c, jmodel.init_cache(cfg_j, 2, 24))):
+        theirs = jax.tree.map(np.asarray, theirs)
+        assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+        for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+    back = bridge.params_to_numpy(params_t)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params_j)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_zamba2_forward_matches_jax(zsetup):
+    cfg_j, cfg_t, params_j, params_t = zsetup
+    toks = _tokens(3, 2, 37, cfg_t.vocab_size)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks))
+    assert got.shape == (2, 37, cfg_t.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("s", [32, 37])  # 37: not a chunk multiple
+def test_zamba2_prefill_decode_logits_and_caches_match_jax(zsetup, s):
+    cfg_j, cfg_t, params_j, params_t = zsetup
+    b = 2
+    toks = _tokens(s, b, s, cfg_t.vocab_size)
+    cache_j = jmodel.init_cache(cfg_j, b, s + 4)
+    cache_t = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    pre_j, cache_j = jmodel.prefill(params_j, cfg_j,
+                                    jnp.asarray(toks[:, :-1]), cache_j)
+    pre_t, cache_t = tmodel.prefill(params_t, cfg_t,
+                                    torch.from_numpy(toks[:, :-1]), cache_t)
+    np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j), **LOGIT_TOL)
+    pos = np.full((b,), s - 1, np.int32)
+    dec_j, cache_j = jmodel.decode_step(params_j, cfg_j,
+                                        jnp.asarray(toks[:, -1:]), cache_j,
+                                        jnp.asarray(pos))
+    dec_t, cache_t = tmodel.decode_step(params_t, cfg_t,
+                                        torch.from_numpy(toks[:, -1:]),
+                                        cache_t, torch.from_numpy(pos))
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), **LOGIT_TOL)
+    mine = bridge.params_to_numpy(cache_t)
+    theirs = jax.tree.map(np.asarray, cache_j)
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for a, b_ in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        np.testing.assert_allclose(a, b_, **LOGIT_TOL)
+
+
+def test_zamba2_prefill_decode_matches_forward(zsetup):
+    """prefill(t[:-1]) + one decode step gives the last forward logits
+    (tests/test_models.py::test_prefill_decode_matches_forward)."""
+    _, cfg_t, _, params_t = zsetup
+    b, s = 2, 32
+    toks = torch.from_numpy(_tokens(4, b, s, cfg_t.vocab_size))
+    full, _ = tmodel.forward(params_t, cfg_t, toks)
+    cache = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    _, cache = tmodel.prefill(params_t, cfg_t, toks[:, :-1], cache)
+    dec, _ = tmodel.decode_step(params_t, cfg_t, toks[:, -1:], cache,
+                                torch.full((b,), s - 1, dtype=torch.int32))
+    np.testing.assert_allclose(dec[:, 0].numpy(), full[:, -1].numpy(),
+                               **LOGIT_TOL)
+
+
+def test_pure_mlp_layers_match_jax():
+    """kind="none" layers (MLP only, no mixer, empty cache) as JAX runs
+    them: a llama smoke config whose pattern is (attn, none)."""
+    from repro.models.config import GroupSpec as JGroup
+    from repro.models.config import LayerSpec as JSpec
+    from repro_torch.models.config import GroupSpec, LayerSpec
+    cfg_j = dataclasses.replace(
+        jconfigs.get_config("llama3.2-1b", smoke=True),
+        groups=(JGroup(pattern=(JSpec(), JSpec(kind="none")), repeat=2),))
+    cfg_t = dataclasses.replace(
+        tconfigs.get_config("llama3.2-1b", smoke=True),
+        groups=(GroupSpec(pattern=(LayerSpec(), LayerSpec(kind="none")),
+                          repeat=2),))
+    params_j = jmodel.init_params(jax.random.PRNGKey(5), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    assert set(params_t["groups"][0]["slots"][1]) == {"pre_mlp_norm", "mlp"}
+    toks = _tokens(5, 2, 16, cfg_t.vocab_size)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    cache = tmodel.init_cache(cfg_t, 2, 20, device="cpu")
+    assert cache[0]["slots"][1] == {}
+    pre, _ = tmodel.prefill(params_t, cfg_t, torch.from_numpy(toks), cache)
+    np.testing.assert_allclose(pre[:, 0].numpy(), np.asarray(want)[:, -1],
+                               **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("spec", [
+    dict(kind="mla"), dict(kind="mlstm", mlp="none"), dict(kind="slstm"),
+    dict(kind="cross_attn"), dict(mlp="moe"), dict(post_norms=True)])
+def test_unported_layers_raise(spec):
+    from repro_torch.models import blocks
+    from repro_torch.models.config import LayerSpec
+    cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        blocks.init_layer(torch.Generator(), cfg, LayerSpec(**spec), "cpu")
