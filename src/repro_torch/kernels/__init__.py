@@ -1,4 +1,5 @@
 """Kernels of the port: plain PyTorch versions (:mod:`.ref`), hand-written
 CUDA kernels for Hopper (``csrc/``, wrapped by :mod:`.flash_attention`,
-:mod:`.decode_attention` and :mod:`.mamba_chunk_scan`) and the dispatcher
-the model calls (:mod:`.ops`)."""
+:mod:`.decode_attention`, :mod:`.mamba_chunk_scan` and :mod:`.rmsnorm`)
+and the dispatcher the model calls (:mod:`.ops`), which wires the flash
+attention and RMSNorm kernels into autograd."""

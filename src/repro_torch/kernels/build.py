@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -28,24 +30,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each library's entry point: (symbol, argtypes)
+# C entry points of each library (one per csrc/<name>.cu): symbol -> argtypes
 SIGNATURES = {
-    "flash_attention": (
-        "flash_attention_fwd",
-        # q, k, v, o, dtype, B, S, T, H, KV, HD, causal, window, scale,
-        # softcap, q_offset, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-         _P]),
-    "decode_attention": (
-        "decode_attention_fwd",
+    "flash_attention": {
+        # q, k, v, o, lse (or null), dtype, B, S, T, H, KV, HD, causal,
+        # window, scale, softcap, q_offset, stream
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _F, _I, _P]},
+    "flash_attention_bwd": {
+        # q, k, v, o, lse, dO, dq, dk, dv, dtype, B, S, T, H, KV, HD, causal,
+        # window, scale, softcap, stream
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]},
+    "decode_attention": {
         # q, k, v, lengths, o, dtype, B, T, H, KV, HD, window, scale,
         # softcap, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]),
-    "mamba_chunk_scan": (
-        "mamba_chunk_scan_fwd",
+        "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _F, _F, _P]},
+    "mamba_chunk_scan": {
         # x, dt, a, b, c, d, h0 (or null), y, h_final, dtype, B, S, NH,
         # HD, NS, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "mamba_chunk_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _P]},
+    "rmsnorm": {
+        # x, scale, y, rstd, dtype, rows, d, eps, zero_centered, stream
+        "rmsnorm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        # x, scale, rstd, g, dx, dscale, partials, dtype, rows, d,
+        # zero_centered, stream
+        "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -93,10 +105,10 @@ def _finish(name: str, out: Path, proc: subprocess.Popen | None) -> str:
 
 def _open(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for symbol, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -131,9 +143,12 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name``."""
-    return getattr(load(name), SIGNATURES[name][0])
+def entry(name: str, symbol: str | None = None):
+    """The C entry point ``symbol`` of library ``name`` (by default the
+    library's only one)."""
+    if symbol is None:
+        (symbol,) = SIGNATURES[name]
+    return getattr(load(name), symbol)
 
 
 # head dims the attention kernels are instantiated for (csrc/*.cu templates)
@@ -161,6 +176,22 @@ def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None, *,
         raise ValueError(f"{kernel}: {arg} must be contiguous")
     if aligned and t.data_ptr() % 16:
         raise ValueError(f"{kernel}: {arg} must be 16-byte aligned")
+
+
+def check_no_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would record this call.  A kernel fills a fresh
+    tensor through a raw pointer, so its output has no autograd history:
+    under grad mode a result of inputs that require grad would silently
+    cut the graph.  The autograd functions of :mod:`.ops` call the kernels
+    with grad mode off; anything else that needs a gradient must go there.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and this kernel's output "
+            f"would be detached from autograd; call it under "
+            f"torch.no_grad(), or through repro_torch.kernels.ops where an "
+            f"autograd backward exists")
 
 
 def launch_check(kernel: str, err: int) -> None:

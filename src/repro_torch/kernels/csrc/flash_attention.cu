@@ -5,7 +5,11 @@
 // k, v (B,T,KV,hd) with kv head = h / (H/KV); optional causal mask with
 // query positions offset by q_offset, sliding window (qpos - kpos < window),
 // tanh soft-cap; fp32 running max m, sum l and accumulator;
-// out = acc / max(l, 1e-30) in the input dtype.
+// out = acc / max(l, 1e-30) in the input dtype.  When the caller passes
+// an lse pointer (training: the backward needs it), each row's fp32
+// log-sum-exp m + log(l) is written to lse[b][h][row] as well, and +inf for
+// a row with no live key, so that the backward's exp(s - lse) is 0 there;
+// the serving paths pass null and pay nothing for it.
 //
 // What bounds it on the H100: arithmetic.  Attention does 4*hd FLOPs per
 // live (query, key) pair and reads each of q, k, v once, so its intensity
@@ -61,9 +65,10 @@ struct Tile {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int T_len,
-                 int H, int KV, int causal, int window, float scale,
-                 float softcap, int q_offset) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int T_len, int H, int KV,
+                 int causal, int window, float scale, float softcap,
+                 int q_offset) {
   using C = Tile<HD>;
   constexpr int BK = C::BK, KS = C::KS, DPL = C::DPL, JPL = C::JPL;
   constexpr int HDP = C::HDP;
@@ -223,6 +228,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < RPW; ++r) {
     const int row = q0 + rbase + r;
     if (row >= S) continue;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * H + h) * S + row] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     float out[DPL];
 #pragma unroll
@@ -240,9 +248,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int T_len, int H, int KV, int causal,
-                   int window, float scale, float softcap, int q_offset,
-                   cudaStream_t stream) {
+                   float* lse, int B, int S, int T_len, int H, int KV,
+                   int causal, int window, float scale, float softcap,
+                   int q_offset, cudaStream_t stream) {
   constexpr size_t smem = Tile<HD>::SMEM;
   auto kern = flash_fwd_kernel<T, HD>;
   if (smem > 48 * 1024) {
@@ -253,29 +261,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, T_len, H, KV, causal,
-      window, scale, softcap, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, T_len, H, KV,
+      causal, window, scale, softcap, q_offset);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
-                      void* o, int B, int S, int T_len, int H, int KV,
-                      int causal, int window, float scale, float softcap,
-                      int q_offset, cudaStream_t stream) {
+                      void* o, float* lse, int B, int S, int T_len, int H,
+                      int KV, int causal, int window, float scale,
+                      float softcap, int q_offset, cudaStream_t stream) {
   switch (HD) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, T_len, H, KV, causal, window,
-                           scale, softcap, q_offset, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, T_len, H, KV, causal, window,
-                           scale, softcap, q_offset, stream);
-    case 80:
-      return launch<T, 80>(q, k, v, o, B, S, T_len, H, KV, causal, window,
-                           scale, softcap, q_offset, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, T_len, H, KV, causal, window,
-                            scale, softcap, q_offset, stream);
+#define REPRO_CASE(D)                                                      \
+  case D:                                                                  \
+    return launch<T, D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, \
+                        scale, softcap, q_offset, stream);
+    REPRO_CASE(32)
+    REPRO_CASE(64)
+    REPRO_CASE(80)
+    REPRO_CASE(128)
+#undef REPRO_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -284,20 +289,23 @@ cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The caller has
-// checked shapes, dtypes, contiguity and 16-byte alignment.
+// checked shapes, dtypes, contiguity and 16-byte alignment.  lse is null or
+// a (B, H, S) fp32 buffer.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
-                                   int S, int T_len, int H, int KV, int HD,
-                                   int causal, int window, float scale,
-                                   float softcap, int q_offset,
+                                   const void* v, void* o, void* lse,
+                                   int dtype, int B, int S, int T_len, int H,
+                                   int KV, int HD, int causal, int window,
+                                   float scale, float softcap, int q_offset,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == DTYPE_F32)
-    return (int)launch_hd<float>(HD, q, k, v, o, B, S, T_len, H, KV, causal,
-                                 window, scale, softcap, q_offset, st);
+    return (int)launch_hd<float>(HD, q, k, v, o, l, B, S, T_len, H, KV,
+                                 causal, window, scale, softcap, q_offset,
+                                 st);
   if (dtype == DTYPE_BF16)
-    return (int)launch_hd<__nv_bfloat16>(HD, q, k, v, o, B, S, T_len, H, KV,
-                                         causal, window, scale, softcap,
+    return (int)launch_hd<__nv_bfloat16>(HD, q, k, v, o, l, B, S, T_len, H,
+                                         KV, causal, window, scale, softcap,
                                          q_offset, st);
   return (int)cudaErrorInvalidValue;
 }

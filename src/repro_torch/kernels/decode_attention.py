@@ -18,7 +18,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      lengths: torch.Tensor, window: int | None = None,
                      softcap: float | None = None,
                      scale: float = 1.0) -> torch.Tensor:
-    """q: (B,1,H,hd); k,v: (B,T,KV,hd); lengths: (B,) int32 -> (B,1,H,hd)."""
+    """q: (B,1,H,hd); k,v: (B,T,KV,hd); lengths: (B,) int32 -> (B,1,H,hd).
+    Serving only: it has no backward, and raises under autograd."""
+    build.check_no_grad(NAME, q, k, v)
     for arg, t in (("q", q), ("k", k), ("v", v)):
         build.check_operand(NAME, arg, t, 4, None if arg == "q" else q.dtype)
     build.check_operand(NAME, "lengths", lengths, 1, torch.int32)

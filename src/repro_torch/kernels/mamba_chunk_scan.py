@@ -21,7 +21,9 @@ def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x: (B,S,NH,HD); dt: (B,S,NH) fp32; a, d: (NH,) fp32; b, c: (B,S,NS)
     in x.dtype; h0: (B,NH,HD,NS) fp32 or None -> (y (B,S,NH,HD) in x.dtype,
     h_final (B,NH,HD,NS) fp32).  ``chunk`` is accepted for the signature of
-    the JAX kernel; the CUDA kernel picks its own chunk length."""
+    the JAX kernel; the CUDA kernel picks its own chunk length.  Serving
+    only: it has no backward, and raises under autograd."""
+    build.check_no_grad(NAME, x, dt, a, b, c, d, h0)
     f32 = torch.float32
     build.check_operand(NAME, "x", x, 4, aligned=False)
     build.check_operand(NAME, "dt", dt, 3, f32, aligned=False)

@@ -6,8 +6,11 @@ params are stacked over the repeat axis, as in :mod:`repro.models.blocks`;
 a Python loop over that axis takes the place of ``lax.scan``.
 Weight-shared slots (zamba2's shared attention) are not stacked: every
 repeat uses the same params, but each repeat keeps its own cache.  Caches
-are written in place.  ``cfg.remat`` has no effect here (no backward in
-the serving path); the training port maps it to activation checkpointing.
+are written in place.  ``cfg.remat="full"`` checkpoints one repeat of the
+group body when autograd records it (``torch.utils.checkpoint``, as the
+JAX model ``jax.checkpoint``s its scan body): the repeat's activations are
+dropped after the forward and recomputed in the backward.  ``"dots"``
+raises ``NotImplementedError`` there.
 
 Ported: mixers ``attn`` and ``mamba2`` and pure-MLP layers (``kind="none"``),
 with ``mlp="glu"`` (gated or plain) or ``"none"``.  Not yet: ``mla``,
@@ -18,9 +21,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mamba2
-from repro_torch.models.common import rmsnorm, rmsnorm_init, tree_map
+from repro_torch.models.common import (rmsnorm, rmsnorm_init, tree_leaves,
+                                       tree_map)
 from repro_torch.models.config import (GroupSpec, LayerSpec, ModelConfig,
                                        dtype_of)
 from repro_torch.models.mlp import apply_mlp, init_mlp
@@ -121,14 +126,40 @@ def apply_group(params: Params, cfg: ModelConfig, gspec: GroupSpec,
                 ) -> tuple[torch.Tensor, Params | None]:
     """Run the group's repeats in order.  ``cache`` (stacked over the
     repeat axis for every slot, shared ones included) is updated in place
-    through per-repeat views and returned."""
-    for r in range(gspec.repeat):
+    through per-repeat views and returned.
+
+    Each stacked param is unbound into its repeats once, so the backward
+    stacks each param's gradient once rather than adding a stack-sized
+    zero tensor for every repeat's ``a[r]``."""
+    training = cache is None and torch.is_grad_enabled()
+    if training and cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={cfg.remat!r}: not ported yet")
+    slots = [p if spec.shared else _unstack(p, gspec.repeat)
+             for spec, p in zip(gspec.pattern, params["slots"])]
+
+    def body(x: torch.Tensor, r: int) -> torch.Tensor:
         for i, spec in enumerate(gspec.pattern):
-            p = params["slots"][i]
-            if not spec.shared:
-                p = tree_map(lambda a: a[r], p)
+            p = slots[i] if spec.shared else slots[i][r]
             c = None
             if cache is not None and cache["slots"][i]:
                 c = tree_map(lambda a: a[r], cache["slots"][i])
             x, _ = apply_layer(p, cfg, spec, x, ctx, c)
+        return x
+
+    for r in range(gspec.repeat):
+        if training and cfg.remat == "full":
+            x = checkpoint(body, x, r, use_reentrant=False)
+        else:
+            x = body(x, r)
     return x, cache
+
+
+def _unstack(tree: Params, n: int) -> list[Params]:
+    """The ``n`` per-repeat trees of a tree stacked over its leading axis,
+    each leaf unbound once."""
+    parts = [a.unbind(0) for a in tree_leaves(tree)]
+    out = []
+    for r in range(n):
+        it = iter([q[r] for q in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out

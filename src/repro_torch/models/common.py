@@ -14,6 +14,8 @@ from typing import Any, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 Params = Any  # nested dict tree of tensors
 
 
@@ -46,13 +48,13 @@ def rmsnorm_init(dim: int, dtype: torch.dtype,
 
 def rmsnorm(params: Params, x: torch.Tensor, *, eps: float = 1e-6,
             zero_centered: bool = True) -> torch.Tensor:
-    """RMSNorm with (1 + scale) parameterisation (gemma-style zero-centred)."""
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    xf = xf * torch.rsqrt(var + eps)
-    scale = params["scale"].float()
-    scale = (1.0 + scale) if zero_centered else scale
-    return (xf * scale).to(x.dtype)
+    """RMSNorm with (1 + scale) parameterisation (gemma-style zero-centred).
+
+    The JAX model computes it in jnp; the port routes it through
+    ``ops.rmsnorm``: the CUDA kernels (forward and backward) on the card,
+    the same arithmetic in plain torch on the CPU."""
+    return ops.rmsnorm(x, params["scale"], eps=eps,
+                       zero_centered=zero_centered)
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +99,27 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in JAX's flattening order (dict keys sorted), each
+    path as ``jax.tree_util.keystr`` writes it, e.g.
+    ``['groups'][0]['slots'][0]['mixer']['wq']``."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree)
+                for e in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [e for i, v in enumerate(tree)
+                for e in tree_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_map` order (dict insertion
+    order, not JAX's sorted-key order)."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def soft_cap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -129,9 +129,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+def dtype_named(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype string (``"bfloat16"``, ...)."""
+    return _DTYPES[name]
+
+
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     """The torch dtype named by ``cfg.dtype``."""
-    return _DTYPES[cfg.dtype]
+    return dtype_named(cfg.dtype)
 
 
 def uniform_groups(n_layers: int, spec: LayerSpec) -> tuple[GroupSpec, ...]:

@@ -1,7 +1,8 @@
 """Top-level LM: embeddings -> layer groups -> final norm -> head.
 
-Exposes the three execution paths of :mod:`repro.models.model`:
+Exposes the execution paths of :mod:`repro.models.model`:
   * ``forward``      - training forward (full sequence, no cache)
+  * ``forward_loss`` - training forward + token cross-entropy
   * ``prefill``      - fill caches for a prompt, return last-token logits
   * ``decode_step``  - one token against the cache
 
@@ -22,7 +23,7 @@ from repro_torch.device import resolve
 from repro_torch.models import blocks
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        rmsnorm_init, soft_cap)
-from repro_torch.models.config import ModelConfig, dtype_of
+from repro_torch.models.config import ModelConfig, dtype_named, dtype_of
 
 Params = Any
 
@@ -105,6 +106,29 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     ctx = {"positions": _positions(b, s, x.device)}
     x, _ = _run(params, cfg, x, ctx, None)
     return _head(params, cfg, x), _aux(x.device)
+
+
+def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Training forward + mean token cross-entropy.  tokens, labels: (B,S).
+
+    As in the JAX model, only the logsumexp (over logits cast to
+    ``cfg.loss_dtype``) reads the full (B,S,V) logits; the gold logit is
+    the label's head row dotted with the final hidden state in fp32, not a
+    gather over the vocab axis."""
+    b, s = tokens.shape[:2]
+    x = _embed(params, cfg, tokens)
+    ctx = {"positions": _positions(b, s, x.device)}
+    x, _ = _run(params, cfg, x, ctx, None)
+    logits = _head(params, cfg, x)
+    lse = torch.logsumexp(logits.to(dtype_named(cfg.loss_dtype)),
+                          dim=-1).float()
+    w = params["head"].T if "head" in params else params["embed"]  # (V,D)
+    rows = w[labels]                                             # (B,S,D)
+    gold = (x.float() * rows.float()).sum(-1)
+    if cfg.final_softcap:
+        gold = soft_cap(gold, cfg.final_softcap)
+    return (lse - gold).mean(), _aux(x.device)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -218,3 +218,164 @@ def test_zamba2_on_card_matches_cpu(cuda):
     assert launched == n_mamba
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# training kernels: rmsnorm forward/backward, flash-attention LSE and
+# backward
+# ---------------------------------------------------------------------------
+
+# dx and dscale are sums in another order than the plain version's: fp32
+# within 1e-4, bf16 within the kernel tolerance of tests/test_kernels.py
+RMS_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+               torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# the backward's five products run in fp32 on both sides; in bf16 the
+# plain version rounds q.k to bf16 before the softmax, the kernel does not
+FLASH_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+                 torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (4, 37, 256), (2, 128), (1, 8, 8, 512),   # tests/test_kernels.py
+    (8192, 2048), (37, 2560), (5, 5120),      # the slices' widths
+    (3, 100), (1, 64),                        # d not a multiple of 8
+])
+@pytest.mark.parametrize("zero_centered", [True, False])
+def test_rmsnorm_kernels_match_plain(cuda, dtype, shape, zero_centered):
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    x = _randn(rng, shape, dtype, cuda)
+    scale = _randn(rng, (shape[-1],), dtype, cuda) * 0.1
+    g = _randn(rng, shape, dtype, cuda)
+    kw = dict(eps=1e-6, zero_centered=zero_centered)
+    n = rn.rmsnorm_fwd.launches, rn.rmsnorm_bwd.launches
+    y, rstd = rn.rmsnorm_fwd(x, scale, **kw)
+    dx, dscale = rn.rmsnorm_bwd(x, scale, rstd, g,
+                                zero_centered=zero_centered)
+    torch.cuda.synchronize()
+    assert (rn.rmsnorm_fwd.launches, rn.rmsnorm_bwd.launches) == \
+        (n[0] + 1, n[1] + 1)
+    _close(y, ref.rmsnorm(x, scale, **kw), dtype)
+    want_r = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
+    torch.testing.assert_close(rstd, want_r, rtol=2e-5, atol=2e-5)
+    want_dx, want_ds = ref.rmsnorm_bwd(x, scale, g, **kw)
+    assert dx.dtype == dtype and dscale.dtype == dtype
+    torch.testing.assert_close(dx.float(), want_dx.float(),
+                               **RMS_BWD_TOL[dtype])
+    torch.testing.assert_close(dscale.float(), want_ds.float(),
+                               **RMS_BWD_TOL[dtype])
+
+
+def test_rmsnorm_backward_is_deterministic(cuda):
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(1)
+    x = _randn(rng, (8192, 2048), torch.bfloat16, cuda)
+    scale = _randn(rng, (2048,), torch.bfloat16, cuda)
+    g = _randn(rng, (8192, 2048), torch.bfloat16, cuda)
+    _, rstd = rn.rmsnorm_fwd(x, scale)
+    first = rn.rmsnorm_bwd(x, scale, rstd, g)
+    for _ in range(3):
+        for a, b in zip(first, rn.rmsnorm_bwd(x, scale, rstd, g)):
+            assert torch.equal(a, b)
+
+
+FLASH_BWD_CASES = [  # (b, s, t, h, kv, hd, causal, window, cap)
+    (2, 256, 256, 4, 2, 64, True, None, None),   # tests/test_kernels.py
+    (1, 256, 256, 8, 8, 128, True, None, 50.0),
+    (2, 512, 512, 4, 1, 64, True, 128, None),
+    (1, 128, 128, 4, 4, 32, False, None, None),
+    (1, 384, 384, 6, 2, 64, True, 256, 30.0),
+    (1, 200, 200, 4, 2, 80, True, 64, 30.0),     # hd 80, ragged S
+    (2, 77, 77, 4, 1, 128, True, 32, None),      # ragged, window
+    (1, 33, 50, 4, 4, 64, False, None, 50.0),    # T > S, non-causal
+]
+
+
+def _flash_bwd_inputs(rng, b, s, t, h, kv, hd, dtype, device):
+    return (_randn(rng, (b, s, h, hd), dtype, device),
+            _randn(rng, (b, t, kv, hd), dtype, device),
+            _randn(rng, (b, t, kv, hd), dtype, device),
+            _randn(rng, (b, s, h, hd), dtype, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap", FLASH_BWD_CASES)
+def test_flash_lse_and_backward_match_plain(cuda, dtype, b, s, t, h, kv, hd,
+                                            causal, window, cap):
+    rng = np.random.default_rng(s + hd)
+    q, k, v, do = _flash_bwd_inputs(rng, b, s, t, h, kv, hd, dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=cap, scale=hd ** -0.5)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_o, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    _close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, **TOL[dtype])
+    n = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n + 1
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), w.float(),
+                                   **FLASH_BWD_TOL[dtype], msg=name)
+
+
+def test_flash_backward_is_deterministic_and_refuses_q_offset(cuda):
+    rng = np.random.default_rng(3)
+    q, k, v, do = _flash_bwd_inputs(rng, 2, 512, 512, 32, 8, 64,
+                                    torch.bfloat16, cuda)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=0.125)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=0.125)
+    for a, b in zip(first, fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  scale=0.125)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, q_offset=8)
+
+
+def test_serving_kernels_raise_under_autograd(cuda):
+    """decode_attention and mamba_chunk_scan have no backward: under grad
+    mode with an input that requires grad they raise, never detach."""
+    q = torch.zeros(1, 1, 4, 64, device=cuda, requires_grad=True)
+    k = torch.zeros(1, 8, 4, 64, device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="detached"):
+        da.decode_attention(q, k, k, lengths=lengths)
+    args = list(_ssd_inputs(np.random.default_rng(0), 1, 8, 2, 16, 16,
+                            torch.float32, cuda))
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="detached"):
+        mcs.mamba_chunk_scan(*args)
+    with torch.no_grad():  # serving: no graph to cut
+        da.decode_attention(q, k, k, lengths=lengths)
+        mcs.mamba_chunk_scan(*args)
+
+
+def test_forward_loss_gradients_on_card_match_cpu(cuda):
+    """llama3.2-1b at full width cut to 2 layers, fp32: forward_loss and
+    every gradient through the kernels (flash and rmsnorm, forward and
+    backward) against the CPU plain path on the same params and batch."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.config import uniform_groups
+    cfg = configs.get_config("llama3.2-1b")
+    cfg = dataclasses.replace(cfg, dtype="float32", remat="full",
+                              groups=uniform_groups(2, cfg.groups[0].pattern[0]))
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 129)).astype(np.int32))
+    res = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev).requires_grad_(True), params)
+        leaves = []
+        tree_map(leaves.append, p)
+        loss, _ = model.forward_loss(p, cfg, toks[:, :-1].to(dev),
+                                     toks[:, 1:].to(dev))
+        grads = torch.autograd.grad(loss, leaves)
+        res.append((loss.detach().cpu(), [g.cpu() for g in grads]))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-4, atol=2e-4)
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).norm() / b.norm()) < 1e-3

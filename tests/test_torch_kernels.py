@@ -150,3 +150,39 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
                 [3], dtype=torch.int32))
     assert fa.flash_attention.launches == 0
     assert da.decode_attention.launches == 0
+
+
+def test_no_grad_guard_refuses_to_detach():
+    """build.check_no_grad: under grad mode an input that requires grad
+    raises (a kernel's output would be cut from the graph); under
+    no_grad, or with no such input, it passes."""
+    from repro_torch.kernels import build
+    x = torch.zeros(2, requires_grad=True)
+    with pytest.raises(RuntimeError, match="detached"):
+        build.check_no_grad("k", torch.zeros(2), None, x)
+    build.check_no_grad("k", torch.zeros(2), None, x.detach())
+    with torch.no_grad():
+        build.check_no_grad("k", x)
+    with torch.inference_mode():
+        build.check_no_grad("k", torch.zeros(2))
+
+
+@pytest.mark.parametrize("wrapper", ["decode", "ssd", "flash", "rmsnorm"])
+def test_kernel_wrappers_refuse_autograd_inputs(wrapper):
+    """The guard runs before any other check, so it shows on the CPU too:
+    no wrapper returns a result detached from inputs that require grad."""
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    from repro_torch.kernels import rmsnorm as rn
+    q = torch.randn(1, 1, 4, 32, requires_grad=True)
+    k = torch.randn(1, 4, 2, 32)
+    with pytest.raises(RuntimeError, match="detached"):
+        if wrapper == "decode":
+            da.decode_attention(q, k, k, lengths=torch.tensor(
+                [3], dtype=torch.int32))
+        elif wrapper == "ssd":
+            mcs.mamba_chunk_scan(q[0], q[0, :, :, 0], torch.zeros(4),
+                                 q[0, :, 0], q[0, :, 0], torch.zeros(4))
+        elif wrapper == "flash":
+            fa.flash_attention(q, k, k)
+        else:
+            rn.rmsnorm_fwd(q, torch.zeros(32))
