@@ -5,7 +5,9 @@
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
-   ``build/kernels/`` (timed).
+   ``build/kernels/`` (timed), the registers and spills of the main
+   instantiations, and the count of HGMMA (tensor-core) instructions in
+   each bf16 flash kernel's SASS.
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
    attention at head dims 32, 64, 80 and 128 (fp32 2e-5, bf16 2e-2), the
@@ -50,6 +52,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -70,7 +73,8 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 SSD_CHUNK = 64         # the SSD kernel's chunk length (csrc/mamba_chunk_scan.cu)
 # backward kernels against their plain versions: sums in another order
 # (fp32); in bf16 the plain flash backward rounds q.k to bf16 before the
-# softmax, as the plain forward does, and the kernel does not
+# softmax, as the plain forward does, and the kernel rounds P and dS to
+# bf16 as tensor-core operands
 RMS_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 RMS_SWEEP = [(4, 37, 256), (2, 128), (1, 8, 8, 512)]  # tests/test_kernels.py
@@ -626,12 +630,14 @@ def _flash_bwd_row(args, kw, err):
     return dict(
         name="flash_attention_bwd", shape=[b, s, h, kv, hd], err=err,
         flops=10 * hd * pairs * b * h,
-        nbytes=q.element_size() * (6 * q.numel() + 4 * k.numel())
+        nbytes=q.element_size() * (4 * q.numel() + 4 * k.numel())
         + 4 * lse.numel(),
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:114",
         note="no Pallas counterpart: the JAX package differentiates its "
-             "jnp oracle; this is the gradient of _fa_kernel",
+             "jnp oracle; this is the gradient of _fa_kernel; its two "
+             "passes compute S and dP twice, 7 products a pair against "
+             "the bound's 5",
         kernel=lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
         plain=lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, **kw),
         library=lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
@@ -975,6 +981,30 @@ def run_training(card):
     return launches
 
 
+def hgmma_counts(build):
+    """The number of HGMMA (wgmma) instructions in each bf16 flash kernel's
+    SASS, from ``cuobjdump -sass`` of the built libraries; None if the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    counts = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"(flash_(?:fwd|bwd)\w*?_sm90)ILi(\d+)E", line)
+                fn = f"{m[1]}<{m[2]}>" if m else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1005,20 +1035,25 @@ def main() -> int:
     logs = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
-    shown = (("flash_fwd_kernel", "Li64E"), ("flash_fwd_kernel", "Li80E"),
-             ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
-             ("ssd_kernel", ""), ("flash_bwd_dq_kernel", "Li64E"),
-             ("flash_bwd_dkdv_kernel", "Li64E"), ("rms_fwd_kernel", "Li8E"),
-             ("rms_bwd_kernel", "Li8E"))
+    shown = [(k, t) for k in ("flash_fwd_kernel_sm90",
+                              "flash_bwd_dq_kernel_sm90",
+                              "flash_bwd_dkdv_kernel_sm90")
+             for t in ("Li64E", "Li80E")] + [
+        ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
+        ("ssd_kernel", ""), ("rms_fwd_kernel", "Li8E"),
+        ("rms_bwd_kernel", "Li8E")]
     for name, log in logs.items():
-        entry = None
+        what = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-            elif "Used" in line and entry and "13__nv_bfloat16" in entry \
-                    and any(k in entry and t in entry for k, t in shown):
-                print(f"  {name} bf16 {entry[:48]}: "
-                      f"{line.split(':', 1)[1].strip()}")
+                what = next((f"{k} {t}" for k, t in shown
+                             if k in entry and t in entry), None) \
+                    if "13__nv_bfloat16" in entry else None
+            elif what and ("Used" in line or "spill" in line):
+                print(f"  {name} bf16 {what}: "
+                      f"{line.split(':', 1)[-1].strip()}")
+    print("HGMMA instructions in the SASS:", json.dumps(hgmma_counts(build)))
 
     # 2. kernels against their plain versions
     inputs = check_kernels()

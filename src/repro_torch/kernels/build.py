@@ -38,10 +38,12 @@ SIGNATURES = {
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _F, _I, _P]},
     "flash_attention_bwd": {
-        # q, k, v, o, lse, dO, dq, dk, dv, dtype, B, S, T, H, KV, HD, causal,
-        # window, scale, softcap, stream
-        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]},
+        # q, k, v, o, lse, dO, dq, dk, dv, delta (bf16: (B, H, S) fp32
+        # scratch; fp32: null), dtype, B, S, T, H, KV, HD, causal, window,
+        # scale, softcap, q_offset, stream
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                _P]},
     "decode_attention": {
         # q, k, v, lengths, o, dtype, B, T, H, KV, HD, window, scale,
         # softcap, stream
@@ -71,7 +73,9 @@ def nvcc() -> str:
     return path
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` is built for the present
+    sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
@@ -79,7 +83,7 @@ def _library_path(name: str) -> Path:
 
 
 def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
-    out = _library_path(name)
+    out = library_path(name)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -81,12 +81,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) in the dtypes of q, k, v from the forward's
     output ``o``, its log-sum-exp ``lse`` (B,H,S) fp32 and the output
-    gradient ``do``.  Full-sequence attention only: q_offset must be 0."""
+    gradient ``do``.  Query row i sits at position q_offset + i, as in
+    the forward."""
     build.check_no_grad(BWD_NAME, q, k, v, o, lse, do)
     _check(BWD_NAME, q, k, v, q_offset)
-    if q_offset:
-        raise ValueError(f"{BWD_NAME}: q_offset {q_offset} is not taken "
-                         f"(training attends full sequences)")
     for arg, t in (("o", o), ("do", do)):
         build.check_operand(BWD_NAME, arg, t, 4, q.dtype)
         if t.shape != q.shape:
@@ -99,12 +97,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{BWD_NAME}: lse {tuple(lse.shape)}, expected "
                          f"{(b, h, s)}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    # D = rowsum(dO * O), written by the bf16 path's first kernel
+    delta = torch.empty_like(lse) if q.dtype == torch.bfloat16 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.entry(BWD_NAME)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _dtype_code(q), b, s, t, h, kv, hd, int(causal),
-        int(window or 0), float(scale), float(softcap or 0.0), stream)
+        dv.data_ptr(), None if delta is None else delta.data_ptr(),
+        _dtype_code(q), b, s, t, h, kv, hd, int(causal),
+        int(window or 0), float(scale), float(softcap or 0.0), int(q_offset),
+        stream)
     build.launch_check(BWD_NAME, err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -46,6 +46,12 @@ def _close(got, want, dtype):
     (1, 33, 50, 4, 4, 64, False, None, 50.0, 0),
     (1, 200, 200, 32, 32, 80, True, None, None, 0),  # zamba2's hd 80
     (2, 45, 109, 4, 2, 80, True, 40, 30.0, 64),
+    (1, 1, 1, 4, 2, 64, True, None, None, 0),        # S, T off the 64 grid
+    (2, 63, 63, 8, 1, 64, True, None, None, 0),      # G = 8
+    (1, 65, 129, 4, 4, 64, True, None, None, 64),    # G = 1, T > S
+    (1, 129, 129, 8, 2, 128, False, None, None, 0),
+    (1, 129, 129, 4, 2, 80, True, 48, 30.0, 0),      # hd 80, window, cap
+    (1, 65, 65, 8, 1, 32, True, 16, 50.0, 0),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal,
                                     window, cap, q_offset):
@@ -229,8 +235,10 @@ def test_zamba2_on_card_matches_cpu(cuda):
 # within 1e-4, bf16 within the kernel tolerance of tests/test_kernels.py
 RMS_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
                torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
-# the backward's five products run in fp32 on both sides; in bf16 the
-# plain version rounds q.k to bf16 before the softmax, the kernel does not
+# fp32: the backward's products run in fp32 on both sides (the kernel on
+# the CUDA cores), summed in another order; bf16: the plain version rounds
+# q.k to bf16 before the softmax, the kernel rounds P and dS to bf16 as
+# tensor-core operands
 FLASH_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
                  torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 
@@ -289,6 +297,12 @@ FLASH_BWD_CASES = [  # (b, s, t, h, kv, hd, causal, window, cap)
     (1, 200, 200, 4, 2, 80, True, 64, 30.0),     # hd 80, ragged S
     (2, 77, 77, 4, 1, 128, True, 32, None),      # ragged, window
     (1, 33, 50, 4, 4, 64, False, None, 50.0),    # T > S, non-causal
+    (1, 1, 1, 4, 2, 64, True, None, None),       # S, T off the 64 grid
+    (2, 63, 63, 8, 1, 64, True, None, None),     # G = 8
+    (1, 65, 129, 4, 4, 64, False, None, None),   # G = 1
+    (1, 129, 129, 8, 2, 128, True, None, None),
+    (1, 129, 129, 4, 2, 80, True, 48, 30.0),     # hd 80, window, cap
+    (1, 65, 65, 8, 1, 32, True, 16, 50.0),
 ]
 
 
@@ -321,7 +335,7 @@ def test_flash_lse_and_backward_match_plain(cuda, dtype, b, s, t, h, kv, hd,
                                    **FLASH_BWD_TOL[dtype], msg=name)
 
 
-def test_flash_backward_is_deterministic_and_refuses_q_offset(cuda):
+def test_flash_backward_is_deterministic(cuda):
     rng = np.random.default_rng(3)
     q, k, v, do = _flash_bwd_inputs(rng, 2, 512, 512, 32, 8, 64,
                                     torch.bfloat16, cuda)
@@ -330,8 +344,49 @@ def test_flash_backward_is_deterministic_and_refuses_q_offset(cuda):
     for a, b in zip(first, fa.flash_attention_bwd(q, k, v, o, lse, do,
                                                   scale=0.125)):
         assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="q_offset"):
-        fa.flash_attention_bwd(q, k, v, o, lse, do, q_offset=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,window,cap,q_offset", [
+    (1, 64, 192, 4, 2, 64, None, None, 128),
+    (2, 100, 164, 8, 2, 64, 48, None, 64),
+    (1, 77, 205, 4, 4, 80, 64, 30.0, 128),
+    (1, 40, 168, 4, 1, 32, None, 50.0, 64),
+])
+def test_flash_backward_takes_q_offset(cuda, dtype, b, s, t, h, kv, hd,
+                                       window, cap, q_offset):
+    """Query rows at positions q_offset + i against T > S keys, causal."""
+    rng = np.random.default_rng(q_offset + s)
+    q, k, v, do = _flash_bwd_inputs(rng, b, s, t, h, kv, hd, dtype, cuda)
+    kw = dict(causal=True, window=window, softcap=cap, scale=hd ** -0.5,
+              q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(),
+                                   **FLASH_BWD_TOL[dtype], msg=name)
+
+
+def test_flash_kernels_at_the_training_shape(cuda):
+    """llama3.2-1b's training attention, (4, 2048, 32, 8, 64) causal bf16:
+    the forward with its LSE and the backward against the plain versions."""
+    rng = np.random.default_rng(2048)
+    q, k, v, do = _flash_bwd_inputs(rng, 4, 2048, 2048, 32, 8, 64,
+                                    torch.bfloat16, cuda)
+    kw = dict(causal=True, scale=0.125)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_o, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    _close(o, want_o, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.bfloat16])
+    del want_o, want_lse
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(),
+                                   **FLASH_BWD_TOL[torch.bfloat16], msg=name)
 
 
 def test_serving_kernels_raise_under_autograd(cuda):

@@ -186,3 +186,35 @@ def test_kernel_wrappers_refuse_autograd_inputs(wrapper):
             fa.flash_attention(q, k, k)
         else:
             rn.rmsnorm_fwd(q, torch.zeros(32))
+
+
+def test_flash_backward_passes_q_offset_where_signatures_declare():
+    """The wrapper's call of the C entry point, with the library and the
+    CUDA checks mocked out: one argument per declared argtype, q_offset an
+    int just before the stream, where ``build.SIGNATURES`` declares it."""
+    import ctypes
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    calls = []
+
+    def entry(name, symbol=None):
+        return lambda *args: calls.append((name, args)) or 0
+
+    stream = mock.Mock(cuda_stream=7)
+    b, s, t, h, kv, hd = 1, 8, 24, 4, 2, 32
+    q, o, do = (torch.zeros(b, s, h, hd) for _ in range(3))
+    k, v = (torch.zeros(b, t, kv, hd) for _ in range(2))
+    lse = torch.zeros(b, h, s)
+    with mock.patch.object(build, "entry", entry), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, q_offset=16, window=12)
+    ((name, args),) = calls
+    sig = build.SIGNATURES[name][name]
+    assert name == "flash_attention_bwd" and len(args) == len(sig)
+    assert sig[-2] is ctypes.c_int and args[-2] == 16
+    assert sig[-1] is ctypes.c_void_p and args[-1] == 7
+    assert args[11:18] == (b, s, t, h, kv, hd, 1)  # B .. HD, causal
+    assert args[18] == 12                            # window
