@@ -7,14 +7,18 @@
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (timed), the registers and spills of the main
    instantiations, and the count of HGMMA (tensor-core) instructions in
-   each bf16 flash kernel's SASS.
+   each bf16 flash and SSD kernel's SASS.
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
    attention at head dims 32, 64, 80 and 128 (fp32 2e-5, bf16 2e-2), the
-   Mamba-2 SSD scan with ragged S and a split at h0 (fp32 2e-4, bf16 2e-2),
-   RMSNorm forward (fp32 2e-5, bf16 2e-2) and backward (fp32 1e-4, bf16
-   2e-2), the flash forward's log-sum-exp (fp32 2e-5, bf16 2e-2) and the
-   flash backward (fp32 1e-4, bf16 5e-2).
+   Mamba-2 SSD scan with ragged S and a split at h0 (fp32 2e-4, bf16 2e-2,
+   and in bf16 y and h_final within rel. L2 ``SSD_REL_L2_BF16``), RMSNorm
+   forward (fp32 2e-5, bf16 2e-2) and backward (fp32 1e-4, bf16 2e-2),
+   the flash forward's log-sum-exp (fp32 2e-5, bf16 2e-2) and the flash
+   backward (fp32 1e-4, bf16 5e-2).  Decode and SSD run twice and must be
+   bit-equal; decode must be free of NaN, also with lengths at and around
+   a split boundary and a window that empties whole splits.  Both flash
+   wrappers must refuse a query row with no live key.
 3. The serving slices, each at its published width in bf16 with random
    weights from a seeded generator, served through ``ServingEngine`` (16
    requests, prompt lengths uniform in 32-512, 8 slots, 1024 positions, 32
@@ -40,7 +44,7 @@
    algorithms); step time, tokens/s, MFU and a profile of one step.
 4. Numbers: per kernel and slice, its time beside the plain version's, the
    PyTorch library call's (where one computes the same function) and the
-   card's bound.
+   card's bound; the decode rows also give the host's n_split.
 
 Any failed check raises, so the script exits non-zero.  It prints no
 result, and fails, without a CUDA card or outside a checkout of the repo.
@@ -135,6 +139,12 @@ def _check_close(what, got, want, tol):
     return max_err
 
 
+def _rel_l2(got, want):
+    """||got - want|| / ||want||, both taken in fp32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm())
+
+
 def _ssd_inputs(rng, b, s, nh, hd, ns, dtype):
     """x, dt, a, b, c, d as tests/test_kernels.py draws them (dt > 0,
     a < 0); x, b, c in ``dtype``, the rest fp32."""
@@ -168,45 +178,78 @@ def _check_flash(rng, dtype, cases, out, key):
             out[key] = (q, k, v, kw, err)
 
 
-def _check_decode(rng, dtype, cases, out, key):
+def _check_decode(rng, dtype, cases, out, key, lengths=None):
+    """Each case twice: bit-equal, free of NaN, and within ``tol`` of the
+    plain version.  ``lengths`` (for every case) replaces the lengths drawn
+    from 1 .. t-1."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     tol = TOL[str(dtype).removeprefix("torch.")]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, t, h, kv, hd, window, cap in cases:
         q = _randn(rng, (b, 1, h, hd), dtype)
         k = _randn(rng, (b, t, kv, hd), dtype)
         v = _randn(rng, (b, t, kv, hd), dtype)
-        lengths = torch.from_numpy(
-            rng.integers(1, t, size=(b,)).astype(np.int32)).cuda()
-        kw = dict(lengths=lengths, window=window, softcap=cap,
-                  scale=1.0 / np.sqrt(hd))
+        lens = (rng.integers(1, t, size=(b,)) if lengths is None
+                else np.asarray(lengths))
+        kw = dict(lengths=torch.from_numpy(lens.astype(np.int32)).cuda(),
+                  window=window, softcap=cap, scale=1.0 / np.sqrt(hd))
         got = da.decode_attention(q, k, v, **kw)
+        again = da.decode_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = _check_close(f"decode_attention {dtype} {(b, t, h, kv, hd)}",
-                           got, ref.decode_attention(q, k, v, **kw), tol)
+        what = f"decode_attention {dtype} {(b, t, h, kv, hd)}"
+        if bool(torch.isnan(got).any()):
+            raise AssertionError(f"{what}: NaN in the output")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls differ")
+        want = ref.decode_attention(q, k, v, **kw)
+        err = _check_close(what, got, want, tol)
+        n_split = da.n_splits(b, kv, t, sms)
         print(f"decode_attention {str(dtype)[6:]:8s} b={b} t={t} h={h} "
-              f"kv={kv} hd={hd} window={window} cap={cap}: "
-              f"max abs err {err:.3e} (tol {tol})")
+              f"kv={kv} hd={hd} window={window} cap={cap}"
+              f"{'' if lengths is None else f' lengths={list(lengths)}'}"
+              f" n_split={n_split}: max abs err {err:.3e} (tol {tol}), "
+              f"rel L2 {_rel_l2(got, want):.3e}, bit-equal twice, no NaN")
         if key:
-            out[key] = (q, k, v, kw, err)
+            out[key] = (q, k, v, kw, err, n_split)
+
+
+def _check_ssd_rel(what, got, want, limit):
+    """Rel. L2 of ``got`` against ``want``; raises past ``limit`` (None:
+    no limit)."""
+    rel = _rel_l2(got, want)
+    if limit is not None and not rel <= limit:
+        raise AssertionError(f"{what}: rel L2 {rel} > {limit}")
+    return rel
 
 
 def _check_ssd(rng, dtype, cases, out, key):
+    """Each case twice (bit-equal), within ``tol`` of the plain version,
+    and in bf16 y and h_final within the rel. L2 limit
+    ``SSD_REL_L2_BF16``; then a sequence split at h0."""
     from repro_torch.kernels import mamba_chunk_scan as mcs
     from repro_torch.kernels import ref
     tol = SSD_TOL[str(dtype).removeprefix("torch.")]
+    limit = mcs.SSD_REL_L2_BF16 if dtype == torch.bfloat16 else None
     for b, s, nh, hd, ns in cases:
         args = _ssd_inputs(rng, b, s, nh, hd, ns, dtype)
         h0 = torch.from_numpy(rng.standard_normal((b, nh, hd, ns)).astype(
             np.float32)).cuda() if key else None  # the model passes h0
         y, h = mcs.mamba_chunk_scan(*args, h0=h0)
+        y2, h2 = mcs.mamba_chunk_scan(*args, h0=h0)
         torch.cuda.synchronize()
-        want_y, want_h = ref.mamba_chunk_scan(*args, h0=h0)
         what = f"mamba_chunk_scan {dtype} {(b, s, nh, hd, ns)}"
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise AssertionError(f"{what}: two calls differ")
+        want_y, want_h = ref.mamba_chunk_scan(*args, h0=h0)
         err = max(_check_close(what + " y", y, want_y, tol),
                   _check_close(what + " h_final", h, want_h, tol))
+        rel_y = _check_ssd_rel(what + " y", y, want_y, limit)
+        rel_h = _check_ssd_rel(what + " h_final", h, want_h, limit)
         print(f"mamba_chunk_scan {str(dtype)[6:]:8s} b={b} s={s} nh={nh} "
-              f"hd={hd} ns={ns}: max abs err {err:.3e} (tol {tol})")
+              f"hd={hd} ns={ns}: max abs err {err:.3e} (tol {tol}), rel L2 "
+              f"y {rel_y:.3e} h_final {rel_h:.3e} (limit {limit}), "
+              f"bit-equal twice")
         if key and s == max(PREFILL_LENS):
             out[key] = (args, h0, err)
     # split at h0: the first part's h_final feeds the rest
@@ -221,11 +264,47 @@ def _check_ssd(rng, dtype, cases, out, key):
     err = max(_check_close("mamba_chunk_scan h0 split y", y2,
                            want_y[:, cut:], tol),
               _check_close("mamba_chunk_scan h0 split h", h2, want_h, tol))
+    rel_y = _check_ssd_rel("mamba_chunk_scan h0 split y", y2,
+                           want_y[:, cut:], limit)
+    rel_h = _check_ssd_rel("mamba_chunk_scan h0 split h_final", h2, want_h,
+                           limit)
     print(f"mamba_chunk_scan {str(dtype)[6:]:8s} split at h0 (160 = 96 + "
-          f"64): max abs err {err:.3e} (tol {tol})")
+          f"64): max abs err {err:.3e} (tol {tol}), rel L2 y {rel_y:.3e} "
+          f"h_final {rel_h:.3e} (limit {limit})")
 
 
-def _check_rmsnorm(rng, dtype, shapes, out, key):
+def _check_flash_refuses_empty_rows():
+    """A window with q_offset + S >= T + window leaves the last query row
+    with no live key: the flash forward and backward wrappers must raise,
+    and launch nothing."""
+    from repro_torch.kernels import flash_attention as fa
+    s, t, window = 64, 128, 32
+    q = torch.zeros((1, s, 4, 64), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((1, t, 2, 64), dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros((1, 4, s), device="cuda")
+    kw = dict(window=window, q_offset=t + window - s)
+    calls = (("forward", fa.flash_attention,
+              lambda: fa.flash_attention_fwd(q, k, k, **kw)),
+             ("backward", fa.flash_attention_bwd,
+              lambda: fa.flash_attention_bwd(q, k, k, q, lse, q, **kw)))
+    for name, wrapper, call in calls:
+        n = wrapper.launches
+        try:
+            call()
+        except ValueError as e:
+            refused = "no live key" in str(e)
+        else:
+            refused = False
+        if not refused or wrapper.launches != n:
+            raise AssertionError(f"flash {name} did not refuse a query row "
+                                 f"with no live key")
+        print(f"flash_attention {name}: refuses S={s}, T={t}, window="
+              f"{window}, q_offset={kw['q_offset']} (a row with no live "
+              f"key)")
+
+
+def _check_rmsnorm(rng, dtype, shapes, out, key,
+                   rows=("rms_fwd", "rms_bwd")):
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     name = str(dtype).removeprefix("torch.")
@@ -251,9 +330,12 @@ def _check_rmsnorm(rng, dtype, shapes, out, key):
             print(f"rmsnorm {name:8s} {shape} zero_centered={zc}: max abs "
                   f"err fwd {err_f:.3e} (tol {tol}), bwd {err_b:.3e} "
                   f"(tol {btol})")
-            if key and zc:
-                out["rms_fwd:" + key] = ((x, scale), err_f)
-                out["rms_bwd:" + key] = ((x, scale, rstd, g), err_b)
+            if key and zc:  # timed rows, one a shape
+                got = {"rms_fwd": ((x, scale), err_f),
+                       "rms_bwd": ((x, scale, rstd, g), err_b)}
+                for kind in rows:
+                    out[f"{kind}:{key}:{'x'.join(map(str, shape))}"] = \
+                        got[kind]
 
 
 def _check_flash_bwd(rng, dtype, cases, out, key):
@@ -314,10 +396,18 @@ def check_kernels():
                       "decode:llama3.2-1b")
         _check_decode(rng, dtype, [(8, MAX_LEN, 32, 32, 80, None, None)],
                       out, "decode:zamba2-2.7b")
+        # every split combination: lengths 1, a split boundary (256) and
+        # either side, T; the window empties whole splits
+        _check_decode(rng, dtype, [(8, MAX_LEN, 32, 8, 64, w, None)
+                                   for w in (None, 100)]
+                      + [(8, MAX_LEN, 32, 32, 80, 300, None)], out, None,
+                      lengths=[1, 255, 256, 257, 512, 700, 1000, MAX_LEN])
+        _check_flash_refuses_empty_rows()
         _check_ssd(rng, dtype, [(1, s, 80, 64, 64) for s in PREFILL_LENS],
                    out, "ssd:zamba2-2.7b")
         # zamba2's rows: B*S x d (pre-norms) and x 2d (the gated norm)
-        _check_rmsnorm(rng, dtype, [(512, 2560), (512, 5120)], out, None)
+        _check_rmsnorm(rng, dtype, [(512, 2560), (512, 5120)], out,
+                       "zamba2-2.7b", rows=("rms_fwd",))
         # the training slice: B*S x d, and attention at (B, S, H, KV, hd)
         _check_rmsnorm(rng, dtype, [(TRAIN_BATCH * TRAIN_SEQ, 2048)], out,
                        TRAIN_KEY)
@@ -514,7 +604,7 @@ def _flash_row(q, k, v, kw, err):
             qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True))
 
 
-def _decode_row(q, k, v, kw, err):
+def _decode_row(q, k, v, kw, err, n_split):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     b, _, h, hd = q.shape
@@ -526,6 +616,7 @@ def _decode_row(q, k, v, kw, err):
             < lengths[:, None])[:, None, None, :]
     return dict(
         name="decode_attention", shape=[b, t, h, kv, hd], err=err,
+        n_split=n_split,
         flops=4 * hd * h * live,
         nbytes=q.element_size() * (2 * q.numel() + 2 * live * kv * hd)
         + lengths.numel() * 4,
@@ -653,7 +744,7 @@ def kernel_numbers(inputs, launches, card):
             "flash_bwd": _flash_bwd_row}
     out = []
     for key, inp in inputs.items():
-        kind, arch = key.split(":")
+        kind, arch = key.split(":")[:2]
         r = make[kind](*inp)
         ms = time_ms(r["kernel"], flush)
         plain_ms = time_ms(r["plain"], flush)
@@ -668,7 +759,8 @@ def kernel_numbers(inputs, launches, card):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "path": arch, "shape": r["shape"],
             "dtype": "bfloat16", "flops": r["flops"], "bytes": r["nbytes"],
-            "card": card, **({"note": r["note"]} if "note" in r else {})})
+            "card": card,
+            **{k: r[k] for k in ("n_split", "note") if k in r}})
     return out
 
 
@@ -982,22 +1074,26 @@ def run_training(card):
 
 
 def hgmma_counts(build):
-    """The number of HGMMA (wgmma) instructions in each bf16 flash kernel's
-    SASS, from ``cuobjdump -sass`` of the built libraries; None if the
-    toolkit has no cuobjdump."""
+    """The number of HGMMA (wgmma) instructions in each bf16 flash and SSD
+    kernel's SASS, from ``cuobjdump -sass`` of the built libraries; None if
+    the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     counts = {}
-    for lib in ("flash_attention", "flash_attention_bwd"):
+    for lib in ("flash_attention", "flash_attention_bwd", "mamba_chunk_scan"):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
-                m = re.search(r"(flash_(?:fwd|bwd)\w*?_sm90)ILi(\d+)E", line)
-                fn = f"{m[1]}<{m[2]}>" if m else None
+                # flash: <head dim>; SSD: <padded HD, padded NS>
+                m = (re.search(r"(flash_(?:fwd|bwd)\w*?_sm90)ILi(\d+)E",
+                               line)
+                     or re.search(r"(ssd_kernel_sm90)ILi(\d+)ELi(\d+)E",
+                                  line))
+                fn = m and f"{m[1]}<{','.join(m.groups()[1:])}>"
                 if fn:
                     counts[fn] = 0
             elif fn and "HGMMA" in line:
@@ -1040,7 +1136,9 @@ def main() -> int:
                               "flash_bwd_dkdv_kernel_sm90")
              for t in ("Li64E", "Li80E")] + [
         ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
-        ("ssd_kernel", ""), ("rms_fwd_kernel", "Li8E"),
+        ("ssd_kernel_sm90", "Li64ELi64E"), ("ssd_kernel_sm90", "Li64ELi128E"),
+        ("ssd_kernel_sm90", "Li128ELi64E"),
+        ("ssd_kernel_sm90", "Li128ELi128E"), ("rms_fwd_kernel", "Li8E"),
         ("rms_bwd_kernel", "Li8E")]
     for name, log in logs.items():
         what = None

@@ -45,10 +45,11 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                                 _P]},
     "decode_attention": {
-        # q, k, v, lengths, o, dtype, B, T, H, KV, HD, window, scale,
-        # softcap, stream
-        "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _F, _F, _P]},
+        # q, k, v, lengths, o, partials (n_split > 1: fp32 scratch; else
+        # null), dtype, B, T, H, KV, HD, window, scale, softcap, n_split,
+        # stream
+        "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _F, _I, _P]},
     "mamba_chunk_scan": {
         # x, dt, a, b, c, d, h0 (or null), y, h_final, dtype, B, S, NH,
         # HD, NS, stream

@@ -1,12 +1,15 @@
 // Grouped-query decode attention (one new token per sequence) for Hopper
-// (sm_90a).
+// (sm_90a), split over the cache's positions (flash-decoding).
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention (the
 // Pallas TPU kernel _dec_kernel).  Same function: q (B,1,H,hd) against a
 // (B,T,KV,hd) cache, attending kpos in [max(0, len - window), len) for
 // len = lengths[b]; optional tanh soft-cap; the G = H/KV query heads of one
 // KV head share each loaded key and value; fp32 online softmax;
-// out = acc / max(l, 1e-30) in the input dtype.
+// out = acc / max(l, 1e-30) in the input dtype.  A sequence with
+// lengths[b] == 0 gets 0, as _dec_kernel gives it; the oracle
+// (kernels/ref.py) gives the mean of V there.  The model never passes a
+// length of 0.
 //
 // What bounds it on the H100: the bytes of the cache.  Each cached key and
 // value is read once and used for 4*G FLOPs per element pair, about
@@ -14,24 +17,36 @@
 // time is the live cache (sum of lengths x KV x hd x 2 tensors) over
 // 3.35 TB/s.
 //
-// What this first design does about it:
-//  * One CTA per (KV head, batch) holds all G query rows of the group, so
-//    every key and value is read from device memory once (the TPU kernel
-//    does the same with its (G, hd) query tile).
-//  * The CTA reads its own length from device memory (this replaces the
-//    TPU's scalar prefetch) and loops only over [max(0, len - window),
-//    len), so the bytes moved are the live cache, not the allocated one.
+// What the design does about it:
+//  * Grid (n_split, KV, B).  A (B, KV) = (8, 8) grid alone filled 64 of
+//    the card's 132 SMs; the host splits the allocated T into n_split
+//    equal ranges (kernels/decode_attention.py::n_splits picks it from
+//    B*KV and T alone, never from the lengths, which are on the device, so
+//    the launch needs no sync): CTAs to fill every SM's 2048 threads, each
+//    range at least 256 positions.
+//  * Each CTA still holds all G query rows of its KV head, so every key and
+//    value is read from device memory once.  It reads its own length (this
+//    replaces the TPU's scalar prefetch) and streams only the live
+//    positions of its range, [max(0, len - window), len) clipped to it.
 //  * Its 8 warps stream disjoint 32-position chunks with independent
 //    online-softmax state and merge (m, l, acc) through shared memory at
 //    the end, which keeps 8 chunks of loads in flight per CTA.
-//  * A (B, KV) = (8, 8) grid fills only 64 of the card's 132 SMs, which caps
-//    the bandwidth it can reach.  Splitting T across CTAs with a second
-//    combining pass (flash-decoding) is left to a later change.
+//  * With one split the CTA writes the output.  With more, each writes its
+//    fp32 partial (m, l, acc) to a scratch buffer and a second small
+//    kernel merges the partials of each (batch, head) in split order, so
+//    the result is bit-equal from call to call; no CTA waits on another.
+//    A split with no live key (past len, or before len - window) leaves
+//    m = -inf, l = 0, acc = 0, and the merge gives it weight 0 without
+//    forming exp(-inf - (-inf)).
+//  * Products stay on the CUDA cores in fp32: at G <= 16 query rows the
+//    tensor cores' 64-row tiles would be mostly padding, and the bytes
+//    bound the kernel, not the operations.
 //  * Head dims 32, 64, 80 and 128.  Keys are read at the true head dim in
-//    16-byte vectors (an 80-dim bf16 row is ten); in the PV product each
-//    lane owns HDP / 32 value dims, HDP being the head dim rounded up to
-//    whole lanes (96 for 80), and dims past the head dim are neither
-//    loaded nor stored.
+//    16-byte vectors (an 80-dim bf16 row is ten), a lane a position.  In
+//    the PV product a lane reads a vector of one value row, so a warp
+//    reads whole rows at once (three rows of ten lanes at hd 80 bf16);
+//    the row groups' sums meet by shuffles at the end.  At G = 16 the
+//    vectors are halved to keep the accumulators in registers.
 
 #include "common.cuh"
 
@@ -49,15 +64,22 @@ constexpr size_t smem_bytes() {
          (G * HD + NWARPS * G * 32 + 2 * NWARPS * G + NWARPS * G * HD);
 }
 
+// One split of one (KV head, batch).  With o set (one split) it writes the
+// output; else its partial (m, l, acc) goes to pm, pl, pacc, indexed
+// [split][batch * H + head] (pacc with a trailing head dim).
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ o, int T_len, int KV, int window, float scale,
-              float softcap) {
-  constexpr int HDP = (HD + 31) / 32 * 32;  // head dim in whole lanes
-  constexpr int DPL = HDP / 32;        // value dims owned by one lane
+              T* __restrict__ o, float* __restrict__ pm,
+              float* __restrict__ pl, float* __restrict__ pacc, int T_len,
+              int KV, int window, float scale, float softcap,
+              int split_len) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte key load
+  // P V: a lane loads PV consecutive value dims of one row; LPR lanes
+  // cover a row, and a warp RPW rows at once (lanes past RPW * LPR idle)
+  constexpr int PV = VEC * G <= 64 ? VEC : 64 / G;
+  constexpr int LPR = HD / PV, RPW = 32 / LPR;
 
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
@@ -67,7 +89,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sA = sL + NWARPS * G;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int H = KV * G;
   const long long rs = (long long)KV * HD;  // cache row stride
   const T* qb = q + ((long long)b * H + (long long)kvh * G) * HD;
@@ -77,24 +99,28 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < G * HD; i += THREADS) sQ[i] = to_float(qb[i]);
 
+  // live positions of this split: [lo, hi), possibly empty
   const int len = min(max(lengths[b], 0), T_len);
-  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int lo = max(window > 0 ? max(0, len - window) : 0,
+                     split * split_len);
+  const int hi = min(len, (split + 1) * split_len);
   __syncthreads();
 
-  float m[G], l[G], acc[G][DPL];
+  const int rg = lane / LPR, c0 = lane % LPR * PV;  // row group, 1st dim
+  float m[G], l[G], acc[G][PV];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < PV; ++i) acc[g][i] = 0.f;
   }
   float* sPw = sP + warp * G * 32;
 
-  for (int base = lo + warp * 32; base < len; base += NWARPS * 32) {
+  for (int base = lo + warp * 32; base < hi; base += NWARPS * 32) {
     // scores: lane owns position base + lane (position base is always live)
     const int t = base + lane;
-    const bool ok = t < len;
+    const bool ok = t < hi;
     float s[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
@@ -124,33 +150,39 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[g] = l[g] * alpha + warp_sum(p);
       m[g] = m_new;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
+      for (int i = 0; i < PV; ++i) acc[g][i] *= alpha;
       sPw[g * 32 + lane] = p;
     }
     __syncwarp();
 
-    // acc += P V: lane owns value dims lane*DPL .. lane*DPL + DPL - 1
-    const int nj = min(32, len - base);
-    const T* vr = vb + base * rs + lane * DPL;
+    // acc += P V: row group rg takes rows rg, rg + RPW, ...
+    const int nj = rg < RPW ? min(32, hi - base) : 0;
+    const T* vr = vb + base * rs + c0;
 #pragma unroll 4
-    for (int j = 0; j < nj; ++j) {
-      float vf[DPL];
-      if constexpr (HDP == HD) {
-        load_vec<T, DPL>(vr + j * rs, vf);
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i)
-          vf[i] = lane * DPL + i < HD ? to_float(vr[j * rs + i]) : 0.f;
-      }
+    for (int j = rg; j < nj; j += RPW) {
+      float vf[PV];
+      load_vec<T, PV>(vr + j * rs, vf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = sPw[g * 32 + j];
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] += pj * vf[i];
+        for (int i = 0; i < PV; ++i) acc[g][i] += pj * vf[i];
       }
     }
     __syncwarp();
   }
+
+  // sum the row groups' accumulators into the first one's lanes
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < PV; ++i) {
+      float sum = acc[g][i];
+#pragma unroll
+      for (int r = 1; r < RPW; ++r)
+        sum += __shfl_sync(FULL_MASK, acc[g][i], (lane + r * LPR) & 31);
+      acc[g][i] = sum;
+    }
 
   // merge the warps' partial softmax states
 #pragma unroll
@@ -159,10 +191,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sM[warp * G + g] = m[g];
       sL[warp * G + g] = l[g];
     }
+    if (lane < LPR)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      if (lane * DPL + i < HD)
-        sA[(warp * G + g) * HD + lane * DPL + i] = acc[g][i];
+      for (int i = 0; i < PV; ++i)
+        sA[(warp * G + g) * HD + c0 + i] = acc[g][i];
   }
   __syncthreads();
   for (int idx = tid; idx < G * HD; idx += THREADS) {
@@ -179,15 +211,57 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lsum += sL[w * G + g] * f;
       a += sA[(w * G + g) * HD + d] * f;
     }
-    ob[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+    if (o != nullptr) {
+      ob[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+    } else {
+      const long long bh = (long long)split * gridDim.z * H +
+                           (long long)b * H + (long long)kvh * G + g;
+      pacc[bh * HD + d] = a;
+      if (d == 0) {
+        pm[bh] = mx;
+        pl[bh] = lsum;
+      }
+    }
   }
 }
 
+// Merge the n_split partials of each (batch, head) in split order; a split
+// with m = -inf (no live key) has weight 0.  One thread per output element.
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+decode_combine_kernel(const float* __restrict__ pm,
+                      const float* __restrict__ pl,
+                      const float* __restrict__ pacc, T* __restrict__ o,
+                      int BH, int n_split) {
+  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= (long long)BH * HD) return;
+  const int bh = (int)(idx / HD), d = (int)(idx % HD);
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s * BH + bh]);
+  float lsum = 0.f, a = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float ms = pm[s * BH + bh];
+    if (ms == -INFINITY) continue;
+    const float f = expf(ms - mx);
+    lsum += pl[s * BH + bh] * f;
+    a += pacc[((long long)s * BH + bh) * HD + d] * f;
+  }
+  o[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+}
+
+// Arguments shared by the launchers below.
+struct Args {
+  const void *q, *k, *v;
+  const int* lengths;
+  void* o;
+  float* part;  // n_split > 1: pm, pl, pacc one after the other
+  int B, T_len, KV, window, n_split;
+  float scale, softcap;
+  cudaStream_t stream;
+};
+
 template <typename T, int HD, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* o, int B, int T_len, int KV,
-                   int window, float scale, float softcap,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   constexpr size_t smem = smem_bytes<HD, G>();
   auto kern = decode_kernel<T, HD, G>;
   if (smem > 48 * 1024) {
@@ -195,82 +269,69 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(KV, B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), T_len, KV,
-      window, scale, softcap);
+  const int BH = a.B * a.KV * G;
+  const int split_len =
+      ((a.T_len + a.n_split - 1) / a.n_split + 31) / 32 * 32;
+  float* pm = a.n_split > 1 ? a.part : nullptr;
+  float* pl = pm ? pm + (long long)a.n_split * BH : nullptr;
+  float* pacc = pm ? pl + (long long)a.n_split * BH : nullptr;
+  dim3 grid(a.n_split, a.KV, a.B);
+  kern<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.lengths,
+      a.n_split > 1 ? nullptr : static_cast<T*>(a.o), pm, pl, pacc,
+      a.T_len, a.KV, a.window, a.scale, a.softcap, split_len);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1) return e;
+  const long long n = (long long)BH * HD;
+  decode_combine_kernel<T, HD>
+      <<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
+          pm, pl, pacc, static_cast<T*>(a.o), BH, a.n_split);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
-                     const int* lengths, void* o, int B, int T_len, int KV,
-                     int window, float scale, float softcap,
-                     cudaStream_t st) {
+cudaError_t launch_g(int G, const Args& a) {
   switch (G) {
-    case 1:
-      return launch<T, HD, 1>(q, k, v, lengths, o, B, T_len, KV, window,
-                              scale, softcap, st);
-    case 2:
-      return launch<T, HD, 2>(q, k, v, lengths, o, B, T_len, KV, window,
-                              scale, softcap, st);
-    case 4:
-      return launch<T, HD, 4>(q, k, v, lengths, o, B, T_len, KV, window,
-                              scale, softcap, st);
-    case 8:
-      return launch<T, HD, 8>(q, k, v, lengths, o, B, T_len, KV, window,
-                              scale, softcap, st);
-    case 16:
-      return launch<T, HD, 16>(q, k, v, lengths, o, B, T_len, KV, window,
-                               scale, softcap, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return launch<T, HD, 1>(a);
+    case 2: return launch<T, HD, 2>(a);
+    case 4: return launch<T, HD, 4>(a);
+    case 8: return launch<T, HD, 8>(a);
+    case 16: return launch<T, HD, 16>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_hd(int HD, int G, const void* q, const void* k,
-                      const void* v, const int* lengths, void* o, int B,
-                      int T_len, int KV, int window, float scale,
-                      float softcap, cudaStream_t st) {
+cudaError_t launch_hd(int HD, int G, const Args& a) {
   switch (HD) {
-    case 32:
-      return launch_g<T, 32>(G, q, k, v, lengths, o, B, T_len, KV, window,
-                             scale, softcap, st);
-    case 64:
-      return launch_g<T, 64>(G, q, k, v, lengths, o, B, T_len, KV, window,
-                             scale, softcap, st);
-    case 80:
-      return launch_g<T, 80>(G, q, k, v, lengths, o, B, T_len, KV, window,
-                             scale, softcap, st);
-    case 128:
-      return launch_g<T, 128>(G, q, k, v, lengths, o, B, T_len, KV, window,
-                              scale, softcap, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return launch_g<T, 32>(G, a);
+    case 64: return launch_g<T, 64>(G, a);
+    case 80: return launch_g<T, 80>(G, a);
+    case 128: return launch_g<T, 128>(G, a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  The caller has
+// Returns the cudaError_t of the launches (0 on success).  The caller has
 // checked shapes, dtypes, contiguity and 16-byte alignment; lengths is an
-// int32 device array of B entries.
+// int32 device array of B entries; with n_split > 1, part is fp32 scratch
+// of n_split * B * H * (HD + 2) floats (null with one split).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
-                                    void* o, int dtype, int B, int T_len,
-                                    int H, int KV, int HD, int window,
-                                    float scale, float softcap,
-                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(lengths);
-  const int G = H / KV;
-  if (dtype == DTYPE_F32)
-    return (int)launch_hd<float>(HD, G, q, k, v, lens, o, B, T_len, KV,
-                                 window, scale, softcap, st);
+                                    void* o, void* part, int dtype, int B,
+                                    int T_len, int H, int KV, int HD,
+                                    int window, float scale, float softcap,
+                                    int n_split, void* stream) {
+  if (KV < 1 || H % KV || n_split < 1 || (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const int*>(lengths), o,
+               static_cast<float*>(part), B, T_len, KV, window, n_split,
+               scale, softcap, static_cast<cudaStream_t>(stream)};
+  if (dtype == DTYPE_F32) return (int)launch_hd<float>(HD, H / KV, a);
   if (dtype == DTYPE_BF16)
-    return (int)launch_hd<__nv_bfloat16>(HD, G, q, k, v, lens, o, B, T_len,
-                                         KV, window, scale, softcap, st);
+    return (int)launch_hd<__nv_bfloat16>(HD, H / KV, a);
   return (int)cudaErrorInvalidValue;
 }

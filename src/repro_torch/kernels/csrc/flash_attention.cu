@@ -7,9 +7,12 @@
 // tanh soft-cap; fp32 running max m, sum l and accumulator;
 // out = acc / max(l, 1e-30) in the input dtype.  When the caller passes
 // an lse pointer (training: the backward needs it), each row's fp32
-// log-sum-exp m + log(l) is written to lse[b][h][row] as well, and +inf for
-// a row with no live key, so that the backward's exp(s - lse) is 0 there;
-// the serving paths pass null and pay nothing for it.
+// log-sum-exp m + log(l) is written to lse[b][h][row] as well; the serving
+// paths pass null and pay nothing for it.  A query row with no live key
+// (a window and q_offset + S >= T + window) would get 0 and an LSE of +inf
+// here, where the oracle (kernels/ref.py) gives the mean of V: the wrappers
+// (kernels/flash_attention.py::rows_without_keys) refuse such inputs, so
+// the kernels never see one.
 //
 // What bounds it on the H100: at the training shape (4, 2048, 32/8, 64),
 // causal, the operations: 4 hd FLOPs a live (query, key) pair, 68.7 GFLOP

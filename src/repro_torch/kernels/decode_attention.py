@@ -6,12 +6,32 @@ version in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
 
 NAME = "decode_attention"
 GROUP_SIZES = (1, 2, 4, 8, 16)  # H/KV values the kernel is instantiated for
+MAX_SPLITS = 16        # most ranges the cache's positions are split into
+MIN_SPLIT_LEN = 256    # fewest positions a split covers: 32 for each warp
+CTAS_PER_SM = 8        # 256-thread CTAs that fill an SM's 2048 threads
+
+
+def n_splits(b: int, kv: int, t: int, sms: int = 132) -> int:
+    """How many ranges the kernel splits the allocated T into: enough
+    (split, kv, b) CTAs to fill the card's ``sms`` SMs ``CTAS_PER_SM``
+    deep, each split at least ``MIN_SPLIT_LEN`` positions, at most
+    ``MAX_SPLITS``.  From the shapes alone, never from the lengths (on the
+    device), so the launch needs no sync."""
+    want = -(-CTAS_PER_SM * sms // (b * kv))
+    return max(1, min(want, -(-t // MIN_SPLIT_LEN), MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -19,7 +39,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      softcap: float | None = None,
                      scale: float = 1.0) -> torch.Tensor:
     """q: (B,1,H,hd); k,v: (B,T,KV,hd); lengths: (B,) int32 -> (B,1,H,hd).
-    Serving only: it has no backward, and raises under autograd."""
+    Serving only: it has no backward, and raises under autograd.  A
+    sequence with length 0 gets 0, as the Pallas kernel gives it (the
+    oracle, ``ref.decode_attention``, gives the mean of V)."""
     build.check_no_grad(NAME, q, k, v)
     for arg, t in (("q", q), ("k", k), ("v", v)):
         build.check_operand(NAME, arg, t, 4, None if arg == "q" else q.dtype)
@@ -39,12 +61,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if b == 0 or t == 0:
         raise ValueError(f"{NAME}: empty input")
     out = torch.empty_like(q)
+    n = n_splits(b, kv, t, _sm_count(q.device.index))
+    # fp32 partials (m, l, acc) of each split, merged by a second kernel
+    part = (torch.empty(n * b * h * (hd + 2), dtype=torch.float32,
+                        device=q.device) if n > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.entry(NAME)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         b, t, h, kv, hd, int(window or 0), float(scale),
-        float(softcap or 0.0), stream)
+        float(softcap or 0.0), n, stream)
     build.launch_check(NAME, err)
     decode_attention.launches += 1
     return out

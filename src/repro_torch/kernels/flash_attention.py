@@ -17,7 +17,18 @@ NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 
 
-def _check(kernel: str, q, k, v, q_offset: int) -> None:
+def rows_without_keys(s: int, t: int, q_offset: int,
+                      window: int | None) -> bool:
+    """Whether some query row has no live key: with query row i at position
+    q_offset + i and keys at 0 .. t - 1, the last row's window
+    (q_offset + s - 1 - window, q_offset + s - 1] misses every key.  Causal
+    or not, that happens exactly when a window is set and
+    q_offset + s >= t + window (the mask of ``ref._mask`` with
+    q_pos0 = q_offset).  Host integers only: no sync."""
+    return window is not None and window > 0 and q_offset + s >= t + window
+
+
+def _check(kernel: str, q, k, v, q_offset: int, window: int | None) -> None:
     for arg, t in (("q", q), ("k", k), ("v", v)):
         build.check_operand(kernel, arg, t, 4,
                             None if arg == "q" else q.dtype)
@@ -32,6 +43,12 @@ def _check(kernel: str, q, k, v, q_offset: int) -> None:
         raise ValueError(f"{kernel}: {h} query heads over {kv} kv heads")
     if min(b, s, t) == 0 or q_offset < 0:
         raise ValueError(f"{kernel}: empty input or negative q_offset")
+    if rows_without_keys(s, t, q_offset, window):
+        raise ValueError(
+            f"{kernel}: q_offset {q_offset} + S {s} >= T {t} + window "
+            f"{window}, so a query row has no live key; the oracle gives "
+            f"such a row the mean of V and the kernels do not, so they "
+            f"refuse it")
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -43,9 +60,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: float | None = None, scale: float = 1.0,
                         q_offset: int = 0, return_lse: bool = True):
     """q: (B,S,H,hd); k,v: (B,T,KV,hd) -> (out (B,S,H,hd) in q.dtype,
-    lse (B,H,S) fp32, or None unless ``return_lse``)."""
+    lse (B,H,S) fp32, or None unless ``return_lse``).  Raises ValueError
+    on inputs with a query row that has no live key
+    (:func:`rows_without_keys`)."""
     build.check_no_grad(NAME, q, k, v)
-    _check(NAME, q, k, v, q_offset)
+    _check(NAME, q, k, v, q_offset, window)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -82,9 +101,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) in the dtypes of q, k, v from the forward's
     output ``o``, its log-sum-exp ``lse`` (B,H,S) fp32 and the output
     gradient ``do``.  Query row i sits at position q_offset + i, as in
-    the forward."""
+    the forward, and as there a query row with no live key raises
+    ValueError (:func:`rows_without_keys`)."""
     build.check_no_grad(BWD_NAME, q, k, v, o, lse, do)
-    _check(BWD_NAME, q, k, v, q_offset)
+    _check(BWD_NAME, q, k, v, q_offset, window)
     for arg, t in (("o", o), ("do", do)):
         build.check_operand(BWD_NAME, arg, t, 4, q.dtype)
         if t.shape != q.shape:

@@ -90,6 +90,34 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, t, h, kv, hd, window,
     _close(got, ref.decode_attention(q, k, v, **kw), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("n_split", range(1, da.MAX_SPLITS + 1))
+def test_decode_kernel_every_split(cuda, dtype, window, n_split):
+    """Each n_split the host can pick (B = 7 sequences over T = 256 n_split
+    positions, one kv head), lengths 0, 1, 31, 32, 33, T - 1 and T: a
+    window of 40 leaves all but the last one or two splits empty.  No NaN,
+    length 0 gives exactly 0 (the Pallas kernel's answer; the oracle
+    gives the mean of V), the rest match the plain version, and two calls
+    are bit-equal."""
+    b, t, h, kv, hd = 7, da.MIN_SPLIT_LEN * n_split, 4, 1, 64
+    assert da.n_splits(b, kv, t, da._sm_count(cuda.index or 0)) == n_split
+    rng = np.random.default_rng(n_split)
+    q = _randn(rng, (b, 1, h, hd), dtype, cuda)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    lengths = torch.tensor([0, 1, 31, 32, 33, t - 1, t], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(lengths=lengths, window=window, scale=hd ** -0.5)
+    got = da.decode_attention(q, k, v, **kw)
+    again = da.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, again)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], ref.decode_attention(q, k, v, **kw)[1:], dtype)
+
+
 SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
@@ -146,6 +174,51 @@ def test_ssd_kernel_with_initial_state(cuda, dtype):
     torch.testing.assert_close(y2.float(), want_y[:, cut:].float(),
                                **SSD_TOL[dtype])
     torch.testing.assert_close(h2, want_h, **SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 2048])
+def test_ssd_kernel_precision_with_initial_state(cuda, hd, s):
+    """bf16 with h0, HD = NS: y and h_final within the rel. L2 limit of
+    the plain version (SSD_REL_L2_BF16), and two calls bit-equal."""
+    rng = np.random.default_rng(s + hd)
+    args = _ssd_inputs(rng, 1, s, 4, hd, hd, torch.bfloat16, cuda)
+    h0 = _randn(rng, (1, 4, hd, hd), torch.float32, cuda)
+    y, h = mcs.mamba_chunk_scan(*args, h0=h0)
+    y2, h2 = mcs.mamba_chunk_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    want_y, want_h = ref.mamba_chunk_scan(*args, h0=h0)
+    for got, want in ((y, want_y), (h, want_h)):
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        assert rel <= mcs.SSD_REL_L2_BF16
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_flash_kernels_refuse_rows_without_keys(cuda, direction):
+    """A window with q_offset + S >= T + window leaves the last query row
+    with no live key: both wrappers raise, and launch nothing."""
+    s, t, window = 64, 128, 32
+    q = torch.zeros(1, s, 4, 64, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, t, 2, 64, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 4, s, device=cuda)
+    kw = dict(window=window, q_offset=t + window - s)
+    wrapper = (fa.flash_attention if direction == "fwd"
+               else fa.flash_attention_bwd)
+    n = wrapper.launches
+    with pytest.raises(ValueError, match="no live key"):
+        if direction == "fwd":
+            fa.flash_attention_fwd(q, k, k, **kw)
+        else:
+            fa.flash_attention_bwd(q, k, k, q, lse, q, **kw)
+    assert wrapper.launches == n
+    kw["q_offset"] -= 1  # the last row keeps key T - 1
+    if direction == "fwd":
+        fa.flash_attention_fwd(q, k, k, **kw)
+    else:
+        fa.flash_attention_bwd(q, k, k, q, lse, q, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n + 1
 
 
 def test_kernels_reject_unsupported_inputs(cuda):

@@ -218,3 +218,211 @@ def test_flash_backward_passes_q_offset_where_signatures_declare():
     assert sig[-1] is ctypes.c_void_p and args[-1] == 7
     assert args[11:18] == (b, s, t, h, kv, hd, 1)  # B .. HD, causal
     assert args[18] == 12                            # window
+
+
+# ---------------------------------------------------------------------------
+# flash: query rows with no live key are refused
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rows_without_keys_matches_the_jax_mask(causal):
+    """``rows_without_keys`` is true exactly when some row of the JAX
+    oracle's mask (query positions from q_offset) has no True."""
+    seen = set()
+    for s in (1, 5, 64):
+        for t in (1, 7, 64, 130):
+            for q_offset in (0, 3, 60, 129, 200):
+                for window in (None, 0, 1, 8, 100):
+                    m = np.asarray(jref._mask(s, t, causal=causal,
+                                              window=window,
+                                              q_pos0=q_offset))
+                    want = bool((~m.any(axis=1)).any())
+                    assert fa.rows_without_keys(s, t, q_offset, window) \
+                        == want, (s, t, q_offset, window)
+                    seen.add(want)
+    assert seen == {True, False}
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_flash_wrappers_refuse_rows_without_keys(direction):
+    """Both wrappers raise before any launch on an input with an empty
+    row (the CUDA operand checks and the library mocked out), and take
+    the neighbouring input whose last row keeps one key."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    calls = []
+
+    def entry(name, symbol=None):
+        return lambda *args: calls.append(name) or 0
+
+    b, s, t, h, kv, hd, window = 1, 8, 24, 4, 2, 32, 12
+    q, o, do = (torch.zeros(b, s, h, hd) for _ in range(3))
+    k, v = (torch.zeros(b, t, kv, hd) for _ in range(2))
+    lse = torch.zeros(b, h, s)
+    stream = mock.Mock(cuda_stream=7)
+
+    def run(q_offset):
+        kw = dict(window=window, q_offset=q_offset)
+        if direction == "fwd":
+            fa.flash_attention_fwd(q, k, v, **kw)
+        else:
+            fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+    with mock.patch.object(build, "entry", entry), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        with pytest.raises(ValueError, match="no live key"):
+            run(t + window - s)          # last row at T + window - 1
+        assert calls == []
+        run(t + window - s - 1)          # last row keeps key T - 1
+    assert len(calls) == 1
+
+
+# ---------------------------------------------------------------------------
+# decode: how many ranges the cache is split into
+# ---------------------------------------------------------------------------
+
+def test_decode_n_splits_from_shapes():
+    """CTAS_PER_SM CTAs a SM over (split, kv, batch), at least
+    MIN_SPLIT_LEN positions a split, at most MAX_SPLITS; the slices'
+    shapes."""
+    assert da.n_splits(8, 8, 1024) == 4      # llama3.2-1b: 256 CTAs
+    assert da.n_splits(8, 32, 1024) == 4     # zamba2-2.7b: 1024 CTAs
+    assert da.n_splits(64, 8, 1024) == 3
+    assert da.n_splits(256, 8, 4096) == 1
+    assert da.n_splits(8, 8, 100) == 1       # one short range
+    for n in range(1, da.MAX_SPLITS + 1):
+        assert da.n_splits(1, 1, n * da.MIN_SPLIT_LEN) == n
+    assert da.n_splits(1, 1, 10**6) == da.MAX_SPLITS
+    assert da.n_splits(1, 1, 10**6, sms=1) == da.CTAS_PER_SM
+
+
+def test_decode_wrapper_passes_splits_where_signatures_declare():
+    """The wrapper's call of the C entry point, with the library, the CUDA
+    checks and the SM count mocked out: n_split from ``n_splits`` just
+    before the stream, and fp32 scratch for the partials (m, l, acc) of
+    every split, or null with one split."""
+    import ctypes
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    calls = []
+
+    def entry(name, symbol=None):
+        return lambda *args: calls.append(args) or 0
+
+    stream = mock.Mock(cuda_stream=7)
+    for b, t, h, kv, hd in ((8, 1024, 32, 8, 64), (64, 256, 32, 8, 64)):
+        q = torch.zeros(b, 1, h, hd)
+        k = torch.zeros(b, t, kv, hd)
+        lengths = torch.ones(b, dtype=torch.int32)
+        part = mock.Mock(return_value=torch.empty(0))
+        with mock.patch.object(build, "entry", entry), \
+                mock.patch.object(build, "check_operand"), \
+                mock.patch.object(da, "_sm_count", return_value=132), \
+                mock.patch.object(torch.cuda, "current_stream",
+                                  return_value=stream), \
+                mock.patch.object(torch, "empty", part):
+            da.decode_attention(q, k, k, lengths=lengths)
+        args = calls.pop()
+        sig = build.SIGNATURES[da.NAME][da.NAME + "_fwd"]
+        n = da.n_splits(b, kv, t, 132)
+        assert len(args) == len(sig) and sig[-2] is ctypes.c_int
+        assert args[-2] == n and args[-1] == 7
+        if n > 1:
+            part.assert_called_once()
+            assert part.call_args.args == (n * b * h * (hd + 2),)
+            assert args[5] is not None
+        else:
+            part.assert_not_called()
+            assert args[5] is None
+
+
+# ---------------------------------------------------------------------------
+# the SSD kernel's precision contract
+# ---------------------------------------------------------------------------
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _terms3(t):
+    """``t`` as the sum of its three bf16 terms hi + mid + lo, the way the
+    tensor-core kernel feeds an fp32 operand to wgmma."""
+    hi = _bf16(t)
+    mid = _bf16(t - hi)
+    return hi + mid + _bf16(t - hi - mid)
+
+
+def _ssd_emulated(x, dt, a, b, c, d, h0, *, w_op, dx_op, h_op):
+    """Plain-torch emulation of csrc/mamba_chunk_scan.cu's bf16 kernel:
+    chunks of 64 rows, W^T and the decay formed in fp32, the state kept in
+    fp32, and the fp32 operands of the products W x, (decay x)^T B and
+    C H^T as ``w_op``, ``dx_op`` and ``h_op`` make them; sums in fp32."""
+    xf, bf, cf, dtf = x.float(), b.float(), c.float(), dt.float()
+    h = h0.float().clone()
+    ys = []
+    for t0 in range(0, x.shape[1], 64):
+        xs, bs, cs, dts = (u[:, t0:t0 + 64] for u in (xf, bf, cf, dtf))
+        n = xs.shape[1]
+        f = torch.cumsum(dts * a, dim=1)                        # (B,n,NH)
+        tri = torch.tril(torch.ones(n, n, dtype=torch.bool))[None, :, :,
+                                                                 None]
+        gap = torch.where(tri, f[:, :, None] - f[:, None], 0.0)
+        w = torch.where(tri, torch.exp(gap), 0.0) \
+            * torch.einsum("btn,bun->btu", cs, bs)[..., None] \
+            * dts[:, None]                                      # (B,t,u,NH)
+        y = torch.einsum("btuh,buhd->bthd", w_op(w), xs)
+        y = y + torch.exp(f)[..., None] * torch.einsum(
+            "bhdn,btn->bthd", h_op(h), cs)
+        ys.append(y + d[None, None, :, None] * xs)
+        dx = (torch.exp(f[:, -1:] - f) * dts)[..., None] * xs
+        h = torch.exp(f[:, -1])[..., None, None] * h + torch.einsum(
+            "buhd,bun->bhdn", dx_op(dx), bs)
+    return torch.cat(ys, dim=1), h
+
+
+@pytest.mark.parametrize("rounding,within", [
+    ("kernel", True),          # W, decay x and H each as three bf16 terms
+    ("state_bf16", False),     # ... but H rounded to one bf16 term
+    ("one_term", False),       # W and decay x rounded to one bf16 term
+])
+def test_ssd_precision_model_against_jax(rounding, within):
+    """The bf16 kernel's roundings, emulated in plain torch, against the
+    JAX sequential oracle at (1, 512, 4, 64, 64) with h0 on bf16 inputs:
+    y (bf16) and h_final within the rel. L2 limit the card holds the
+    kernel to.  Rounding the state, or W and decay x, to one bf16 term
+    each lands past it, which is why the kernel splits them."""
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    b, s, nh, hd, ns = 1, 512, 4, 64, 64
+    rng = np.random.default_rng(17)
+    f32 = np.float32
+    x, bm, cm = (rng.standard_normal(sh).astype(f32) for sh in
+                 ((b, s, nh, hd), (b, s, ns), (b, s, ns)))
+    dt = (np.abs(rng.standard_normal((b, s, nh))) * 0.1 + 0.01).astype(f32)
+    a = -(np.abs(rng.standard_normal(nh)) + 0.1).astype(f32)
+    d = rng.standard_normal(nh).astype(f32)
+    h0 = rng.standard_normal((b, nh, hd, ns)).astype(f32)
+    bf = jnp.bfloat16
+    want_y, want_h = jref.mamba_chunk_scan(
+        jnp.asarray(x, bf), jnp.asarray(dt), jnp.asarray(a),
+        jnp.asarray(bm, bf), jnp.asarray(cm, bf), jnp.asarray(d),
+        h0=jnp.asarray(h0))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(x=x, dt=dt, a=a, b=bm, c=cm, d=d, h0=h0).items()}
+    for k in ("x", "b", "c"):
+        t[k] = _bf16(t[k])
+    ops_of = {"kernel": (_terms3, _terms3, _terms3),
+              "state_bf16": (_terms3, _terms3, _bf16),
+              "one_term": (_bf16, _bf16, _terms3)}[rounding]
+    y, h = _ssd_emulated(t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"],
+                         t["h0"], w_op=ops_of[0], dx_op=ops_of[1],
+                         h_op=ops_of[2])
+    wy = torch.from_numpy(np.array(want_y, f32))
+    wh = torch.from_numpy(np.array(want_h, f32))
+    rel_y = float((_bf16(y) - wy).norm() / wy.norm())
+    rel_h = float((h - wh).norm() / wh.norm())
+    worst = max(rel_y, rel_h)
+    assert (worst <= mcs.SSD_REL_L2_BF16) == within, (rel_y, rel_h)
