@@ -2,6 +2,13 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rmsnorm-times [--root DIR]
+
+The second form only times the rmsnorm kernels of the checkout at DIR
+(default: this one) at the slices' widths over a sweep of row counts
+(``rmsnorm_times``); run on two checkouts in turns (parent, change,
+change, parent) in one call, it compares them on one card.  The first
+form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
@@ -13,7 +20,9 @@
    attention at head dims 32, 64, 80 and 128 (fp32 2e-5, bf16 2e-2), the
    Mamba-2 SSD scan with ragged S and a split at h0 (fp32 2e-4, bf16 2e-2,
    and in bf16 y and h_final within rel. L2 ``SSD_REL_L2_BF16``), RMSNorm
-   forward (fp32 2e-5, bf16 2e-2) and backward (fp32 1e-4, bf16 2e-2),
+   forward (fp32 2e-5, bf16 2e-2; the same y bits without rstd) and
+   backward (fp32 1e-4, bf16 2e-2; bit-equal twice) at the sweep shapes
+   and at every call's shape (decode steps, prefills, the training step),
    the flash forward's log-sum-exp (fp32 2e-5, bf16 2e-2) and the flash
    backward (fp32 1e-4, bf16 5e-2).  Decode and SSD run twice and must be
    bit-equal; decode must be free of NaN, also with lengths at and around
@@ -44,7 +53,12 @@
    algorithms); step time, tokens/s, MFU and a profile of one step.
 4. Numbers: per kernel and slice, its time beside the plain version's, the
    PyTorch library call's (where one computes the same function) and the
-   card's bound; the decode rows also give the host's n_split.
+   card's bound; the decode rows also give the host's n_split, and the
+   rmsnorm rows the call that launches them (a decode step, a prefill or a
+   training step), its norms per call at that width, its launches at that
+   call and width as the wrapper counted them by (rows, d) in phase 3
+   (asserted equal to the norms per call times the calls) and the launch
+   shape (``kernels/rmsnorm.py::launch_shape``).
 
 Any failed check raises, so the script exits non-zero.  It prints no
 result, and fails, without a CUDA card or outside a checkout of the repo.
@@ -52,6 +66,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -113,6 +128,21 @@ LOSS_MARGIN = 0.5        # nats the loss must fall over the 8 steps
 PARITY_BATCH, PARITY_SEQ = 2, 512
 PARITY_LOSS_REL, PARITY_GRAD_REL_L2 = 1e-2, 5e-2
 RESTART_TOL = 1e-6       # tests/test_train_serve_ft.py:83-103
+# the rmsnorm calls of each path, checked and timed at their rows: (path,
+# call, rows, widths); a decode step's 8 slots and a 512-token prefill at
+# llama's d and at zamba2's d and 2 d (the gated norm), and the training
+# step (forward and backward)
+RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
+             ("llama3.2-1b", "prefill", 512, (2048,)),
+             ("zamba2-2.7b", "decode step", MAX_BATCH, (2560, 5120)),
+             ("zamba2-2.7b", "prefill", 512, (2560, 5120)),
+             (TRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ, (2048,))]
+# rows of the serving forward's sweep in --rmsnorm-times: a decode step,
+# prompts of 32-512 tokens, and on to the training step's, across the
+# forward's change of plan (kernels/rmsnorm.py FEW_ELEMS: past 409, 819
+# and 1024 rows at d 5120, 2560 and 2048)
+RMS_TIMED_ROWS = (MAX_BATCH, 32, 64, 128, 192, 256, 384, 512, 768, 1024,
+                  2048, 4096, TRAIN_BATCH * TRAIN_SEQ)
 
 # (arch, published widths: layers, d, heads, kv heads, head dim, d_ff,
 #  vocab, dtype, mamba (d_state, d_conv, expand, head_dim, chunk) or None)
@@ -305,6 +335,10 @@ def _check_flash_refuses_empty_rows():
 
 def _check_rmsnorm(rng, dtype, shapes, out, key,
                    rows=("rms_fwd", "rms_bwd")):
+    """Forward and backward against the plain versions; the forward
+    without rstd gives the same y bits, and the backward the same bits
+    twice.  ``key`` ("<path>:<call>") keeps each shape's zero-centred
+    inputs for the timed ``rows``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     name = str(dtype).removeprefix("torch.")
@@ -315,9 +349,18 @@ def _check_rmsnorm(rng, dtype, shapes, out, key,
             scale = _randn(rng, shape[-1:], dtype) * 0.1
             g = _randn(rng, shape, dtype)
             y, rstd = rn.rmsnorm_fwd(x, scale, zero_centered=zc)
+            y2, none = rn.rmsnorm_fwd(x, scale, zero_centered=zc,
+                                      with_rstd=False)
             dx, dscale = rn.rmsnorm_bwd(x, scale, rstd, g, zero_centered=zc)
+            dx2, dscale2 = rn.rmsnorm_bwd(x, scale, rstd, g,
+                                          zero_centered=zc)
             torch.cuda.synchronize()
             what = f"rmsnorm {dtype} {shape} zero_centered={zc}"
+            if none is not None or not torch.equal(y, y2):
+                raise AssertionError(f"{what}: the forward without rstd "
+                                     f"differs")
+            if not (torch.equal(dx, dx2) and torch.equal(dscale, dscale2)):
+                raise AssertionError(f"{what}: two backward calls differ")
             want_r = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
             err_f = max(
                 _check_close(what + " y", y,
@@ -329,13 +372,20 @@ def _check_rmsnorm(rng, dtype, shapes, out, key,
                                      btol))
             print(f"rmsnorm {name:8s} {shape} zero_centered={zc}: max abs "
                   f"err fwd {err_f:.3e} (tol {tol}), bwd {err_b:.3e} "
-                  f"(tol {btol})")
+                  f"(tol {btol}); y bit-equal without rstd, backward "
+                  f"bit-equal twice")
             if key and zc:  # timed rows, one a shape
                 got = {"rms_fwd": ((x, scale), err_f),
                        "rms_bwd": ((x, scale, rstd, g), err_b)}
                 for kind in rows:
                     out[f"{kind}:{key}:{'x'.join(map(str, shape))}"] = \
                         got[kind]
+
+
+def _rms_kinds(call):
+    """The rmsnorm kernels a call launches: the training step both."""
+    return (("rms_fwd", "rms_bwd") if call == "training step"
+            else ("rms_fwd",))
 
 
 def _check_flash_bwd(rng, dtype, cases, out, key):
@@ -405,12 +455,10 @@ def check_kernels():
         _check_flash_refuses_empty_rows()
         _check_ssd(rng, dtype, [(1, s, 80, 64, 64) for s in PREFILL_LENS],
                    out, "ssd:zamba2-2.7b")
-        # zamba2's rows: B*S x d (pre-norms) and x 2d (the gated norm)
-        _check_rmsnorm(rng, dtype, [(512, 2560), (512, 5120)], out,
-                       "zamba2-2.7b", rows=("rms_fwd",))
-        # the training slice: B*S x d, and attention at (B, S, H, KV, hd)
-        _check_rmsnorm(rng, dtype, [(TRAIN_BATCH * TRAIN_SEQ, 2048)], out,
-                       TRAIN_KEY)
+        for path, call, n, ds in RMS_CALLS:
+            _check_rmsnorm(rng, dtype, [(n, d) for d in ds], out,
+                           f"{path}:{call}", rows=_rms_kinds(call))
+        # the training slice's attention at (B, S, H, KV, hd)
         _check_flash_bwd(rng, dtype, [(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 64,
                                        True, None, None)], out, TRAIN_KEY)
     return out
@@ -508,12 +556,29 @@ def _counters():
             "rmsnorm_bwd": rn.rmsnorm_bwd}
 
 
+def _reset_counters():
+    """Every wrapper's launch count to 0, and rmsnorm's by shape."""
+    for fn in _counters().values():
+        fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+
+
+def _norm_widths(cfg):
+    """RMSNorms per token pass by width: at d one before each mixer and
+    each MLP and the final norm; at the mamba2 inner width (expand x d) the
+    gated norm inside each mamba2 mixer."""
+    count = {cfg.d_model: 1 + sum(((s.kind != "none") + (s.mlp != "none"))
+                                  * g.repeat
+                                  for g in cfg.groups for s in g.pattern)}
+    gated = _n_layers(cfg, "mamba2")
+    if gated:
+        count[cfg.mamba.expand * cfg.d_model] = gated
+    return count
+
+
 def _n_norms(cfg):
-    """RMSNorms per token pass: one before each mixer and each MLP, the
-    gated norm inside each mamba2 mixer, and the final norm."""
-    return 1 + sum(((s.kind != "none") + (s.mlp != "none")
-                    + (s.kind == "mamba2")) * g.repeat
-                   for g in cfg.groups for s in g.pattern)
+    return sum(_norm_widths(cfg).values())
 
 
 def serve(cfg, params, prompts):
@@ -522,8 +587,7 @@ def serve(cfg, params, prompts):
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
                         device="cuda")
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     t0 = time.perf_counter()
     eng.start()
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
@@ -533,6 +597,7 @@ def serve(cfg, params, prompts):
     wall = time.perf_counter() - t0
     eng.stop()
     launches = {n: fn.launches for n, fn in _counters().items()}
+    rms_shapes = dict(_counters()["rmsnorm_fwd"].shapes)
     for r in reqs:
         if len(r.out_tokens) != NEW_TOKENS:
             raise AssertionError(f"request {r.rid}: {len(r.out_tokens)} "
@@ -554,6 +619,22 @@ def serve(cfg, params, prompts):
     print(f"{cfg.name} launches per prefill: flash_attention {n_attn}, "
           f"mamba_chunk_scan {n_ssd}, rmsnorm_fwd {n_norm}; per decode "
           f"step: decode_attention {n_attn}, rmsnorm_fwd {n_norm}")
+    # the rmsnorm launches by the call that made them (a decode step runs
+    # MAX_BATCH rows, a prefill a prompt's), and by width, as the wrapper
+    # counted them
+    got = {}
+    for (rows, d), n in rms_shapes.items():
+        call = "decode step" if rows <= MAX_BATCH else "prefill"
+        key = f"rmsnorm_fwd:{call}:{d}"
+        got[key] = got.get(key, 0) + n
+    calls = {"prefill": eng.n_prefills, "decode step": eng.n_decode_steps}
+    per_call = {f"rmsnorm_fwd:{call}:{d}": per for call in calls
+                for d, per in _norm_widths(cfg).items()}
+    want = {k: per * calls[k.split(":")[1]] for k, per in per_call.items()}
+    if got != want:
+        raise AssertionError(f"{cfg.name}: rmsnorm launches by call and "
+                             f"width {got}, expected {want}")
+    rms_calls = {k: (per, got[k]) for k, per in per_call.items()}
     lat = np.array([r.finish_t - r.submit_t for r in reqs])
     stats = {"arch": cfg.name, "requests": N_REQUESTS,
              "prompt_lens": [len(p) for p in prompts],
@@ -562,7 +643,7 @@ def serve(cfg, params, prompts):
              "wall_s": wall, "tokens_per_s": eng.n_generated / wall,
              "latency_p50_s": float(np.percentile(lat, 50)),
              "latency_p95_s": float(np.percentile(lat, 95))}
-    return reqs, launches, stats
+    return reqs, launches, rms_calls, stats
 
 
 def time_ms(fn, flush, iters=25, warmup=3):
@@ -657,9 +738,10 @@ def _ssd_row(args, h0, err):
         library=None)  # no single PyTorch call computes the SSD
 
 
-def _rms_fwd_row(args, err):
-    """Bytes: x and scale read, y and the fp32 rstd written.  Operations:
-    ~4 a element (square-add, two scalings, the 1 + scale)."""
+def _rms_fwd_row(args, err, with_rstd):
+    """Bytes: x and scale read, y written, and the fp32 rstd where the
+    timed call writes it (the training form; serving writes none).
+    Operations: ~4 a element (square-add, two scalings, the 1 + scale)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     x, scale = args
@@ -669,10 +751,11 @@ def _rms_fwd_row(args, err):
         name="rmsnorm_fwd", shape=list(x.shape), err=err,
         flops=4 * x.numel(),
         nbytes=2 * x.numel() * x.element_size() + scale.numel()
-        * scale.element_size() + 4 * (x.numel() // d),
+        * scale.element_size() + 4 * (x.numel() // d) * with_rstd,
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:37",
-        kernel=lambda: rn.rmsnorm_fwd(x, scale),
+        replaces="src/repro/kernels/rmsnorm.py:37", with_rstd=with_rstd,
+        plan=list(rn.launch_shape(x.numel() // d, d, x.dtype)),
+        kernel=lambda: rn.rmsnorm_fwd(x, scale, with_rstd=with_rstd),
         plain=lambda: ref.rmsnorm(x, scale),
         library=lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6))
 
@@ -697,6 +780,8 @@ def _rms_bwd_row(args, err):
         replaces="src/repro/kernels/rmsnorm.py:37",
         note="the Pallas kernel is forward-only; JAX differentiates its "
              "jnp oracle",
+        plan=list(rn.launch_shape(x.numel() // d, d, x.dtype,
+                                  backward=True)),
         kernel=lambda: rn.rmsnorm_bwd(x, scale, rstd, g),
         plain=lambda: ref.rmsnorm_bwd(x, scale, g),
         library=lambda: torch.autograd.grad(y, (xr, wr), g,
@@ -735,17 +820,27 @@ def _flash_bwd_row(args, kw, err):
                                             retain_graph=True))
 
 
-def kernel_numbers(inputs, launches, card):
+def kernel_numbers(inputs, launches, rms_calls, card):
     """Times of each kernel at each slice's shapes, beside its plain
-    version, the PyTorch library call and the card's bound."""
+    version, the PyTorch library call and the card's bound.  An rmsnorm
+    row's launches are its call's (``rms_calls``); its serving forward is
+    timed as serving calls it, without rstd."""
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
     make = {"flash": _flash_row, "decode": _decode_row, "ssd": _ssd_row,
             "rms_fwd": _rms_fwd_row, "rms_bwd": _rms_bwd_row,
             "flash_bwd": _flash_bwd_row}
     out = []
     for key, inp in inputs.items():
-        kind, arch = key.split(":")[:2]
+        kind, arch, *call = key.split(":")
+        extra = {}
+        if kind == "rms_fwd":
+            inp = (*inp, call[0] == "training step")
         r = make[kind](*inp)
+        n = launches[arch][r["name"]]
+        if kind.startswith("rms"):
+            per, n = rms_calls[arch][f"{r['name']}:{call[0]}:"
+                                     f"{r['shape'][-1]}"]
+            extra = {"call": call[0], "per_call": per}
         ms = time_ms(r["kernel"], flush)
         plain_ms = time_ms(r["plain"], flush)
         library_ms = (None if r["library"] is None
@@ -753,15 +848,87 @@ def kernel_numbers(inputs, launches, card):
         t_ops, t_bytes = r["flops"] / PEAK_FLOPS, r["nbytes"] / PEAK_BYTES
         out.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[arch][r["name"]],
+            "replaces": r["replaces"], "launches": n,
             "max_abs_err": r["err"], "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "path": arch, "shape": r["shape"],
             "dtype": "bfloat16", "flops": r["flops"], "bytes": r["nbytes"],
-            "card": card,
-            **{k: r[k] for k in ("n_split", "note") if k in r}})
+            "card": card, **extra,
+            **{k: r[k] for k in ("n_split", "note", "plan", "with_rstd")
+               if k in r}})
     return out
+
+
+def rmsnorm_times(root):
+    """The rmsnorm kernels of the checkout at ``root`` (already on
+    ``sys.path``), timed as its paths call them, beside ``F.rms_norm`` (the
+    forward, or its autograd backward) on the same bf16 inputs: the
+    serving forward through ``ops.rmsnorm`` without grad at every width of
+    ``RMS_CALLS`` and every count of ``RMS_TIMED_ROWS``, the training
+    forward (with rstd) and backward at the training shape, each with a
+    cold L2 (``ms``) and with its inputs left in L2 by the runs before
+    (``warm_ms``, as a norm reads the tensor the kernel before it wrote).
+    Prints one JSON line a timing, each with the card, and last two
+    yardsticks
+    timed the same way: a ``zero_()`` of 8 floats (the least this timer
+    reads) and a ``copy_`` of the training forward's x into y (its bytes
+    moved by a library kernel)."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import rmsnorm as rn
+    if not Path(rn.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {rn.__file__}, not {root}'s")
+    build.load(rn.NAME)
+    card = _card()
+    print(card)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    warm = torch.empty(1, device="cuda")  # a flush that leaves L2 warm
+    rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return a.to(torch.bfloat16).cuda()
+
+    def row(kernel, call, x, fn, library):
+        print(json.dumps({
+            "kernel": kernel, "call": call, "shape": list(x.shape),
+            "dtype": "bfloat16", "ms": time_ms(fn, flush),
+            "warm_ms": time_ms(fn, warm),
+            "library_ms": time_ms(library, flush), "root": str(root),
+            "card": card}), flush=True)
+
+    widths = sorted({d for _, _, _, ds in RMS_CALLS for d in ds})
+    with torch.no_grad():
+        for d in widths:
+            for n in RMS_TIMED_ROWS:
+                x, scale = randn(n, d), randn(d) * 0.1
+                w = 1 + scale
+                row("rmsnorm_fwd", "serving", x,
+                    lambda: ops.rmsnorm(x, scale),
+                    lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6))
+    (_, call, n, (d,)), = [c for c in RMS_CALLS if c[0] == TRAIN_KEY]
+    x, scale, g = randn(n, d), randn(d) * 0.1, randn(n, d)
+    w = 1 + scale
+    row("rmsnorm_fwd", call, x, lambda: rn.rmsnorm_fwd(x, scale),
+        lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6))
+    _, rstd = rn.rmsnorm_fwd(x, scale)
+    xr = x.detach().requires_grad_(True)
+    wr = w.detach().requires_grad_(True)
+    y = torch.nn.functional.rms_norm(xr, (d,), wr, 1e-6)
+    row("rmsnorm_bwd", call, x, lambda: rn.rmsnorm_bwd(x, scale, rstd, g),
+        lambda: torch.autograd.grad(y, (xr, wr), g, retain_graph=True))
+    z, out = torch.zeros(8, device="cuda"), torch.empty_like(x)
+    print(json.dumps({"yardsticks": {
+        "zero_8_floats_ms": time_ms(z.zero_, flush),
+        f"copy_{n}x{d}_bf16_ms": time_ms(lambda: out.copy_(x), flush)},
+        "root": str(root), "card": card}), flush=True)
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def _category(kernel_name):
@@ -854,7 +1021,9 @@ def published_config(arch, widths):
 
 
 def run_slice(arch, widths, card):
-    """Phase 3 for one slice; returns its engine-run launch counts."""
+    """Phase 3 for one slice; returns its engine-run launch counts, and its
+    rmsnorm launches by call and width ("rmsnorm_fwd:<call>:<d>": (norms
+    per call, launches))."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_map
     cfg = published_config(arch, widths)
@@ -872,7 +1041,7 @@ def run_slice(arch, widths, card):
         picks = (0, N_REQUESTS - 1)  # slot 0 first, then a reused slot
         want = {i: greedy_reference(cfg, params, prompts[i])
                 for i in picks}
-    reqs, launches, stats = serve(cfg, params, prompts)
+    reqs, launches, rms_calls, stats = serve(cfg, params, prompts)
     for i in picks:
         if reqs[i].out_tokens != want[i]:
             raise AssertionError(f"{arch} request {i}: engine "
@@ -888,7 +1057,7 @@ def run_slice(arch, widths, card):
     del params, leaves
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, rms_calls
 
 
 def grad_parity(cfg, params):
@@ -1000,7 +1169,8 @@ def restart_check(cfg):
 
 
 def run_training(card):
-    """Phase 3, the training slice; returns its launch counts."""
+    """Phase 3, the training slice; returns its launch counts and its
+    rmsnorm launches as ``run_slice`` does (the call: a training step)."""
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.optimizer import make_optimizer
@@ -1023,10 +1193,11 @@ def run_training(card):
 
     tr.dataset = FixedBatch(cfg, TRAIN_BATCH, TRAIN_SEQ)
     torch.use_deterministic_algorithms(True)
-    for fn in _counters().values():
-        fn.launches = 0
+    _reset_counters()
     hist = tr.train()
     launches = {n: fn.launches for n, fn in _counters().items()}
+    rms_shapes = {n: dict(_counters()[n].shapes)
+                  for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
     n_attn, n_norm = _n_layers(cfg, "attn"), _n_norms(cfg)
     # remat "full" runs each layer's forward twice (the forward, then the
     # recomputation in the backward); the final norm lies outside the
@@ -1039,6 +1210,10 @@ def run_training(card):
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{want} ({per_step} per step)")
+    shape = (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)
+    if rms_shapes != {n: {shape: want[n]} for n in rms_shapes}:
+        raise AssertionError(f"training rmsnorm launches by (rows, d) "
+                             f"{rms_shapes}, expected all at {shape}")
     print(f"{cfg.name} training launches per step: {json.dumps(per_step)}")
     losses = [r["loss"] for r in hist]
     print(f"{cfg.name} training losses: {losses}")
@@ -1070,7 +1245,10 @@ def run_training(card):
     torch.use_deterministic_algorithms(False)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    rms_calls = {f"{n}:training step:{cfg.d_model}": (per_step[n],
+                                                      rms_shapes[n][shape])
+                 for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
+    return launches, rms_calls
 
 
 def hgmma_counts(build):
@@ -1101,29 +1279,40 @@ def hgmma_counts(build):
     return counts
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rmsnorm-times", action="store_true",
+                    help="only time the rmsnorm kernels (rmsnorm_times)")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="checkout whose src/repro_torch --rmsnorm-times "
+                         "times (default: this one)")
+    args = ap.parse_args(argv)
+    root = args.root.resolve()
+    if root != ROOT and not args.rmsnorm_times:
+        ap.error("--root is for --rmsnorm-times")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT} is not a checkout of the repo",
+    if not (root / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {root} is not a checkout of the repo",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(root / "src"))
+    if args.rmsnorm_times:
+        rmsnorm_times(root)
+        return 0
     # cuBLAS reads this when it starts; the training slice's restart check
     # runs with deterministic algorithms, which require it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
 
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
           "cudnn", torch.backends.cudnn.allow_tf32)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = _card()
     print(card)
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "device", torch.cuda.get_device_name(0))
@@ -1138,8 +1327,11 @@ def main() -> int:
         ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
         ("ssd_kernel_sm90", "Li64ELi64E"), ("ssd_kernel_sm90", "Li64ELi128E"),
         ("ssd_kernel_sm90", "Li128ELi64E"),
-        ("ssd_kernel_sm90", "Li128ELi128E"), ("rms_fwd_kernel", "Li8E"),
-        ("rms_bwd_kernel", "Li8E")]
+        ("ssd_kernel_sm90", "Li128ELi128E")] + sorted({
+            (f"{kind}_kernel", "Li{}ELi{}E".format(*rn.launch_shape(
+                n, d, torch.bfloat16, backward=kind == "rms_bwd")[:2]))
+            for _, call, n, ds in RMS_CALLS for d in ds
+            for kind in _rms_kinds(call)})
     for name, log in logs.items():
         what = None
         for line in log.splitlines():
@@ -1157,12 +1349,13 @@ def main() -> int:
     inputs = check_kernels()
 
     # 3. the slices: serving, then training
-    launches = {arch: run_slice(arch, widths, card)
-                for arch, widths in SLICES}
-    launches[TRAIN_KEY] = run_training(card)
+    launches, rms_calls = {}, {}
+    for arch, widths in SLICES:
+        launches[arch], rms_calls[arch] = run_slice(arch, widths, card)
+    launches[TRAIN_KEY], rms_calls[TRAIN_KEY] = run_training(card)
 
     # 4. numbers
-    rows = kernel_numbers(inputs, launches, card)
+    rows = kernel_numbers(inputs, launches, rms_calls, card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1172,4 +1365,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

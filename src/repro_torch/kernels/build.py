@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -56,11 +57,15 @@ SIGNATURES = {
         "mamba_chunk_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _P]},
     "rmsnorm": {
-        # x, scale, y, rstd, dtype, rows, d, eps, zero_centered, stream
-        "rmsnorm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-        # x, scale, rstd, g, dx, dscale, partials, dtype, rows, d,
-        # zero_centered, stream
-        "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+        # x, scale, y, rstd (or null), dtype, rows, d, eps, zero_centered,
+        # then the launch shape (kernels/rmsnorm.py Plan: vec, npt, tpr,
+        # threads, rows_per_cta, grid), stream
+        "rmsnorm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                        _I, _I, _P],
+        # x, scale, rstd, g, dx, dscale, partials ((grid, d) fp32 scratch),
+        # dtype, rows, d, zero_centered, the launch shape, stream
+        "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -74,10 +79,27 @@ def nvcc() -> str:
     return path
 
 
+def defines(name: str) -> dict[str, str]:
+    """The macros of library ``name``: the ``NVCC_DEFINES`` of its wrapper
+    module, where it has one, so that what both the host and the kernels
+    must know (such as the instances compiled) is set there alone."""
+    if not Path(__file__).with_name(f"{name}.py").exists():
+        return {}
+    module = importlib.import_module(f"{__package__}.{name}")
+    return dict(getattr(module, "NVCC_DEFINES", {}))
+
+
+def _defines_header(name: str) -> str:
+    """The ``#define`` lines of :func:`defines`: nvcc reads them from a
+    header it includes first (``-D`` would split a value at its commas)."""
+    return "".join(f"#define {k} {v}\n" for k, v in defines(name).items())
+
+
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` is built for the present
-    sources and flags."""
+    sources, flags and macros."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(_defines_header(name).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -89,7 +111,13 @@ def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS]
+    header = _defines_header(name)
+    if header:
+        path = out.with_suffix(".h")
+        path.write_text(header)
+        cmd += ["--pre-include", str(path)]
+    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, proc

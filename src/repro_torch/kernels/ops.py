@@ -11,9 +11,9 @@ forward and backward each dispatch by device in the same way (the CUDA
 backward kernels on the card, ``ref.*_bwd`` on the CPU).  Otherwise (no
 grad mode, or no input that requires grad, as on the serving paths) the
 forward runs alone and saves nothing: the flash kernel then writes no
-log-sum-exp.  ``decode_attention`` and ``mamba_chunk_scan`` have no
-backward; their kernels raise under autograd rather than return a
-detached result.
+log-sum-exp, and the rmsnorm kernel no rstd.  ``decode_attention`` and
+``mamba_chunk_scan`` have no backward; their kernels raise under autograd
+rather than return a detached result.
 """
 from __future__ import annotations
 
@@ -77,7 +77,8 @@ class _RMSNorm(torch.autograd.Function):
                                   zero_centered=zero_centered), None
         else:
             y, rstd = _rn.rmsnorm_fwd(x, scale, eps=eps,
-                                      zero_centered=zero_centered)
+                                      zero_centered=zero_centered,
+                                      with_rstd=True)
         ctx.save_for_backward(x, scale, rstd)
         ctx.eps, ctx.zero_centered = eps, zero_centered
         return y
@@ -101,8 +102,8 @@ def rmsnorm(x, scale, *, eps=1e-6, zero_centered=True):
         return _RMSNorm.apply(x, scale, eps, zero_centered)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps=eps, zero_centered=zero_centered)
-    return _rn.rmsnorm_fwd(x, scale, eps=eps,
-                           zero_centered=zero_centered)[0]
+    return _rn.rmsnorm_fwd(x, scale, eps=eps, zero_centered=zero_centered,
+                           with_rstd=False)[0]
 
 
 def decode_attention(q, k, v, *, lengths, window=None, softcap=None,

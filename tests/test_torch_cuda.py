@@ -320,6 +320,9 @@ FLASH_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 @pytest.mark.parametrize("shape", [
     (4, 37, 256), (2, 128), (1, 8, 8, 512),   # tests/test_kernels.py
     (8192, 2048), (37, 2560), (5, 5120),      # the slices' widths
+    (8, 2048), (8, 2560), (8, 5120),          # decode steps: a row a CTA
+    (512, 2048),                              # llama's prefill
+    (1024, 2560),                             # packed past FEW_ELEMS
     (3, 100), (1, 64),                        # d not a multiple of 8
 ])
 @pytest.mark.parametrize("zero_centered", [True, False])
@@ -346,6 +349,51 @@ def test_rmsnorm_kernels_match_plain(cuda, dtype, shape, zero_centered):
                                **RMS_BWD_TOL[dtype])
     torch.testing.assert_close(dscale.float(), want_ds.float(),
                                **RMS_BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 2560), (8, 2048), (300, 512)])
+def test_rmsnorm_kernels_take_unaligned_rows(cuda, dtype, shape):
+    """x, g and dx views one element into their buffers: no row is 16-byte
+    aligned, so the kernels load an element at a time, and stay right."""
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(shape[0])
+    n = int(np.prod(shape))
+
+    def offset(t):
+        buf = torch.empty(n + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(shape)
+        view.copy_(t)
+        return view
+
+    x = offset(_randn(rng, shape, dtype, cuda))
+    g = offset(_randn(rng, shape, dtype, cuda))
+    scale = _randn(rng, (shape[-1],), dtype, cuda) * 0.1
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    plan = rn.launch_shape(shape[0], shape[-1], dtype, aligned=False)
+    assert plan.vec == 1
+    y, rstd = rn.rmsnorm_fwd(x, scale)
+    dx, dscale = rn.rmsnorm_bwd(x, scale, rstd, g)
+    torch.cuda.synchronize()
+    _close(y, ref.rmsnorm(x, scale), dtype)
+    want_dx, want_ds = ref.rmsnorm_bwd(x, scale, g)
+    torch.testing.assert_close(dx.float(), want_dx.float(),
+                               **RMS_BWD_TOL[dtype])
+    torch.testing.assert_close(dscale.float(), want_ds.float(),
+                               **RMS_BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(8, 2560), (512, 5120), (8192, 2048)])
+def test_rmsnorm_forward_without_rstd(cuda, shape):
+    """The serving form writes no rstd, and the same y bits."""
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(7)
+    x = _randn(rng, shape, torch.bfloat16, cuda)
+    scale = _randn(rng, (shape[-1],), torch.bfloat16, cuda) * 0.1
+    y, rstd = rn.rmsnorm_fwd(x, scale)
+    y2, none = rn.rmsnorm_fwd(x, scale, with_rstd=False)
+    assert none is None and rstd is not None
+    assert torch.equal(y, y2)
 
 
 def test_rmsnorm_backward_is_deterministic(cuda):

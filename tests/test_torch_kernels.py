@@ -341,6 +341,187 @@ def test_decode_wrapper_passes_splits_where_signatures_declare():
 
 
 # ---------------------------------------------------------------------------
+# rmsnorm: the launch shapes the host picks, and the wrapper's C call
+# ---------------------------------------------------------------------------
+
+# (rows, d): the slices' serving and training shapes, the sweep shapes of
+# tests/test_kernels.py as rows x d, and d off the vector or small
+RMS_PLAN_SHAPES = [
+    (8192, 2048), (512, 2048), (8, 2048),      # llama: training, prefill, step
+    (512, 2560), (8, 2560), (512, 5120), (8, 5120),   # zamba2, 2 d gated
+    (1024, 2560),                             # packed past FEW_ELEMS
+    (4 * 37, 256), (2, 128), (8 * 8, 512),    # (4, 37, 256), (2, 128), ...
+    (3, 100), (1, 64),
+]
+
+
+def test_rmsnorm_instances_reach_nvcc(tmp_path):
+    """``NPTS`` and ``BUDGET`` reach csrc/rmsnorm.cu as macros of a header
+    nvcc includes first (and in the library's hash), and the source keeps
+    no list of its own."""
+    from pathlib import Path
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+    assert rn.NVCC_DEFINES == {"RMS_NPTS": "1,2,3,4,5,6,8",
+                               "RMS_BUDGET": "8,1024,16,512,64,256"}
+    assert build.defines(rn.NAME) == rn.NVCC_DEFINES
+    assert build.defines("flash_attention_bwd") == {}
+    with mock.patch.object(build, "BUILD_DIR", tmp_path), \
+            mock.patch.object(build, "nvcc", return_value="nvcc"), \
+            mock.patch.object(build.subprocess, "Popen") as popen:
+        out, _ = build._start(rn.NAME)
+        (cmd,), _ = popen.call_args
+        n = len(build.NVCC_FLAGS)
+        assert cmd[:n + 3] == ["nvcc", *build.NVCC_FLAGS, "--pre-include",
+                               str(out.with_suffix(".h"))]
+        assert out.with_suffix(".h").read_text() == (
+            "#define RMS_NPTS 1,2,3,4,5,6,8\n"
+            "#define RMS_BUDGET 8,1024,16,512,64,256\n")
+        build._start("flash_attention_bwd")
+        (cmd,), _ = popen.call_args
+        assert "--pre-include" not in cmd
+        with mock.patch.object(rn, "NVCC_DEFINES", {"RMS_NPTS": "1"}):
+            assert build.library_path(rn.NAME) != out
+    src = (Path(rn.__file__).parent / "csrc" / "rmsnorm.cu").read_text()
+    assert "NptList<RMS_NPTS>" in src and "budget<RMS_BUDGET>" in src
+    assert [rn.max_threads(e) for e in (1, 8, 9, 16, 17, 64, 65)] == [
+        1024, 1024, 512, 512, 256, 256, 0]
+
+
+@pytest.mark.parametrize("rows,d", RMS_PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_rmsnorm_launch_shape_covers_every_row_once(rows, d, dtype, backward,
+                                                    aligned):
+    """Walking the CTAs as csrc/rmsnorm.cu does reaches every row exactly
+    once, and each row's threads hold every load of it exactly once, with
+    a compiled instance, whole warps a CTA and the register budget kept."""
+    from collections import Counter
+
+    from repro_torch.kernels import rmsnorm as rn
+    p = rn.launch_shape(rows, d, TDT[dtype], backward=backward,
+                        aligned=aligned)
+    step = 16 // TDT[dtype].itemsize
+    assert p.vec == (step if aligned and d % step == 0 else 1)
+    assert p.npt in rn.NPTS and p.tpr in rn.TPRS
+    assert p.threads % 32 == 0 and p.threads % p.tpr == 0
+    assert p.threads <= rn.max_threads(p.npt * p.vec)
+    group = p.threads // p.tpr
+    seen = Counter()
+    for b in range(p.grid):
+        r0 = b * p.rows_per_cta
+        r1 = min(rows, r0 + p.rows_per_cta)
+        for base in range(r0, r0 + p.rows_per_cta, group):
+            seen.update(r for r in range(base, base + group) if r < r1)
+    assert seen == Counter(range(rows))
+    nv = d // p.vec
+    loads = Counter(li + j * p.tpr for li in range(p.tpr)
+                    for j in range(p.npt) if li + j * p.tpr < nv)
+    assert loads == Counter(range(nv))
+
+
+def test_rmsnorm_launch_shape_at_the_slices():
+    """At the slices' widths (bf16, 8 elements a load): up to FEW_ELEMS
+    elements (a decode step's 8 rows, the prefills) each row gets a CTA
+    whose threads hold two loads each; beyond (the training step, the
+    gated norm's longest prefills) packed rows hold the same number of
+    loads in every thread."""
+    from repro_torch.kernels import rmsnorm as rn
+    bf16 = torch.bfloat16
+    for d in (2048, 2560, 5120):
+        for rows in (8, 512):
+            p = rn.launch_shape(rows, d, bf16)
+            if rows * d <= rn.FEW_ELEMS:
+                assert (p.vec, p.npt, p.tpr, p.threads, p.rows_per_cta,
+                        p.grid) == (8, 2, d // 16, d // 16, 1, rows)
+        for rows, backward in ((512, False), (8192, False), (8192, True)):
+            p = rn.launch_shape(rows, d, bf16, backward=backward)
+            assert p.vec == 8 and p.tpr * p.npt * p.vec == d
+            if backward or rows * d > rn.FEW_ELEMS:
+                assert p.npt <= (rn.BWD_MOST if backward else rn.FWD_MOST)
+                assert p.npt > rn.SPREAD_LOADS or backward
+    assert [rn.launch_shape(512, d, bf16).npt for d in (2048, 2560, 5120)] \
+        == [2, 2, 5]
+
+
+@pytest.mark.parametrize("rows,d", RMS_PLAN_SHAPES)
+def test_rmsnorm_backward_partition_depends_on_rows_only(rows, d):
+    """The backward's CTAs, their rows and so the scratch's n_part (the
+    order of dscale's sums) are the same for every dtype and alignment of
+    one (rows, d), and at most BWD_CTAS."""
+    from repro_torch.kernels import rmsnorm as rn
+    parts = {(p.rows_per_cta, p.grid) for p in (
+        rn.launch_shape(rows, d, dt, backward=True, aligned=al)
+        for dt in (torch.float32, torch.bfloat16) for al in (True, False))}
+    ((per, n_part),) = parts
+    assert n_part <= rn.BWD_CTAS and (n_part - 1) * per < rows <= \
+        n_part * per
+
+
+def test_rmsnorm_wrappers_pass_rstd_where_signatures_declare():
+    """The wrappers' calls of the C entry points, with the library and the
+    CUDA checks mocked out: one argument per declared argtype, the launch
+    shape of ``launch_shape`` just before the stream; the serving path
+    (no grad) passes a null rstd and allocates none, the autograd path a
+    real one, which its backward gets; each launch is counted, in all and
+    by (rows, d).  ``ops`` dispatches a meta tensor as it does a CUDA
+    one."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+    calls = []
+
+    def entry(name, symbol=None):
+        return lambda *args: calls.append((symbol, args)) or 0
+
+    stream = mock.Mock(cuda_stream=7)
+    sig = build.SIGNATURES[rn.NAME]
+    rows, d = 6, 64
+    rn.rmsnorm_fwd.shapes.clear()
+    rn.rmsnorm_bwd.shapes.clear()
+    fwd0, bwd0 = rn.rmsnorm_fwd.launches, rn.rmsnorm_bwd.launches
+    with mock.patch.object(build, "entry", entry), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        x, scale = torch.zeros(2, 3, d), torch.zeros(d)
+        y, rstd = rn.rmsnorm_fwd(x, scale, with_rstd=False)
+        assert rstd is None and y.shape == x.shape
+        y, rstd = rn.rmsnorm_fwd(x, scale)
+        assert rstd.shape == (2, 3) and rstd.dtype == torch.float32
+        (s0, a0), (s1, a1) = calls
+        plan = tuple(rn.launch_shape(rows, d, torch.float32))
+        for s, a in calls:
+            assert s == "rmsnorm_fwd" and len(a) == len(sig[s])
+            assert a[-7:] == (*plan, 7) and a[4:9] == (0, rows, d, 1e-6, 1)
+        assert a0[3] is None and a1[3] == rstd.data_ptr() != 0
+        calls.clear()
+
+        xm = torch.zeros(rows, d, device="meta")
+        sm = torch.zeros(d, device="meta").requires_grad_()
+        with torch.no_grad():
+            ops.rmsnorm(xm, sm)
+        assert calls.pop()[1][3] is None
+        xg = xm.clone().requires_grad_()
+        out = ops.rmsnorm(xg, sm)
+        assert calls.pop()[1][3] is not None
+        torch.autograd.grad(out, (xg, sm), torch.zeros_like(out))
+        ((s, a),) = calls
+        assert s == "rmsnorm_bwd" and len(a) == len(sig[s])
+        assert a[2] is not None and a[-7:] == (
+            *rn.launch_shape(rows, d, torch.float32, backward=True), 7)
+    # each launch counted once, and once by its (rows, d)
+    assert (rn.rmsnorm_fwd.launches - fwd0, rn.rmsnorm_bwd.launches - bwd0) \
+        == (4, 1)
+    assert rn.rmsnorm_fwd.shapes == {(rows, d): 4}
+    assert rn.rmsnorm_bwd.shapes == {(rows, d): 1}
+
+
+# ---------------------------------------------------------------------------
 # the SSD kernel's precision contract
 # ---------------------------------------------------------------------------
 
