@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rmsnorm-times [--root DIR]
+    python3 chip_smoke.py --serving-runtime [--root DIR]
 
 The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
-(``rmsnorm_times``); run on two checkouts in turns (parent, change,
-change, parent) in one call, it compares them on one card.  The first
-form:
+(``rmsnorm_times``); the third only serves llama3.2-1b's 16 requests
+through DIR's engine and prints the runtime's cost a call
+(``serving_runtime``).  Run on two checkouts in turns (parent, change,
+change, parent) in one call, either compares them on one card.  The
+first form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
@@ -29,8 +32,9 @@ form:
    a split boundary and a window that empties whole splits.  Both flash
    wrappers must refuse a query row with no live key.
 3. The serving slices, each at its published width in bf16 with random
-   weights from a seeded generator, served through ``ServingEngine`` (16
-   requests, prompt lengths uniform in 32-512, 8 slots, 1024 positions, 32
+   weights from a seeded generator, served through ``ServingEngine`` on
+   its warm ``repro_torch.core`` Cluster with events on (16 requests in two
+   tenants, prompt lengths uniform in 32-512, 8 slots, 1024 positions, 32
    new tokens each):
    * llama3.2-1b (flash and decode attention, head dim 64);
    * zamba2-2.7b (45 mamba2 layers through the SSD kernel, 9 repeats of a
@@ -39,7 +43,11 @@ form:
    Every RMSNorm of both runs through the rmsnorm kernel.  For each: the
    widths are asserted; every request finishes; every prefill and decode
    step went through its kernels (launch counters set to 0 just before the
-   engine run and read just after); two requests' tokens equal a
+   engine run and read just after); one runtime epoch a prefill or decode
+   step, no spill, and 16 each of the request-enter/-admit/-exit events;
+   the runtime's cost a call (the wall time of the engine's ``_call``
+   minus its task function's, median and p95, by prefill and decode step)
+   and ``EpochStats.server_busy``; two requests' tokens equal a
    one-request greedy generation through ``prefill``/``decode_step``;
    kernel-path logits agree with the plain path; a profile of one decode
    step and one 512-token prefill.
@@ -51,11 +59,21 @@ form:
    the plain path at full width; 3 steps + checkpoint + restore + 3 steps
    equal 6 straight steps (2 layers of the full width, deterministic
    algorithms); step time, tokens/s, MFU and a profile of one step.
+   Then the coordinator slice: llama3.2-1b at its published width through
+   ``MicrobatchCoordinator`` (the same AdamW settings; global batch 4 x
+   2048 in 4 microbatches of 1 x 2048, 4 executors, rsds_ws, 2 steps,
+   deterministic algorithms): the loss is finite and falls; the flash and
+   rmsnorm launches are the microbatch's count times 4 a step; the params
+   after step 1 are bit-equal across 4 executors, 1 executor and 4
+   executors with executor 2 failed mid-step, and within 5e-3 (abs and
+   rel) of one full-batch ``make_train_step`` step; each step's wall time,
+   makespan and ``server_busy`` beside its microbatch functions' walls.
 4. Numbers: per kernel and slice, its time beside the plain version's, the
    PyTorch library call's (where one computes the same function) and the
    card's bound; the decode rows also give the host's n_split, and the
-   rmsnorm rows the call that launches them (a decode step, a prefill or a
-   training step), its norms per call at that width, its launches at that
+   rmsnorm rows the call that launches them (a decode step, a prefill, a
+   training step or a coordinator's microbatch), its norms per call at
+   that width, its launches at that
    call and width as the wrapper counted them by (rows, d) in phase 3
    (asserted equal to the norms per call times the calls) and the launch
    shape (``kernels/rmsnorm.py::launch_shape``).
@@ -121,6 +139,7 @@ SSD_SWEEP = [  # (b, s, nh, hd, ns): tests/test_kernels.py, plus ragged S
     (2, 200, 3, 64, 64),
 ]
 N_REQUESTS, MAX_BATCH, MAX_LEN, NEW_TOKENS = 16, 8, 1024, 32
+FLOOD_REQUESTS = 200     # serving_memory's requests after its first wave
 TRAIN_ARCH, TRAIN_KEY = "llama3.2-1b", "llama3.2-1b-train"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 TRAIN_OPT = dict(lr=1e-3, warmup=2, weight_decay=0.0)
@@ -128,6 +147,9 @@ LOSS_MARGIN = 0.5        # nats the loss must fall over the 8 steps
 PARITY_BATCH, PARITY_SEQ = 2, 512
 PARITY_LOSS_REL, PARITY_GRAD_REL_L2 = 1e-2, 5e-2
 RESTART_TOL = 1e-6       # tests/test_train_serve_ft.py:83-103
+COORD_KEY = "llama3.2-1b-coordinator"
+COORD_EXECUTORS, COORD_MICRO, COORD_STEPS = 4, 4, 2
+COORD_TOL = 5e-3         # abs and rel, tests/test_train_serve_ft.py:143-146
 # the rmsnorm calls of each path, checked and timed at their rows: (path,
 # call, rows, widths); a decode step's 8 slots and a 512-token prefill at
 # llama's d and at zamba2's d and 2 d (the gated norm), and the training
@@ -136,7 +158,8 @@ RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
              ("llama3.2-1b", "prefill", 512, (2048,)),
              ("zamba2-2.7b", "decode step", MAX_BATCH, (2560, 5120)),
              ("zamba2-2.7b", "prefill", 512, (2560, 5120)),
-             (TRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ, (2048,))]
+             (TRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ, (2048,)),
+             (COORD_KEY, "microbatch", TRAIN_SEQ, (2048,))]
 # rows of the serving forward's sweep in --rmsnorm-times: a decode step,
 # prompts of 32-512 tokens, and on to the training step's, across the
 # forward's change of plan (kernels/rmsnorm.py FEW_ELEMS: past 409, 819
@@ -382,9 +405,13 @@ def _check_rmsnorm(rng, dtype, shapes, out, key,
                         got[kind]
 
 
+TRAINING_CALLS = ("training step", "microbatch")
+
+
 def _rms_kinds(call):
-    """The rmsnorm kernels a call launches: the training step both."""
-    return (("rms_fwd", "rms_bwd") if call == "training step"
+    """The rmsnorm kernels a call launches: a training step or a
+    coordinator's microbatch both."""
+    return (("rms_fwd", "rms_bwd") if call in TRAINING_CALLS
             else ("rms_fwd",))
 
 
@@ -461,6 +488,9 @@ def check_kernels():
         # the training slice's attention at (B, S, H, KV, hd)
         _check_flash_bwd(rng, dtype, [(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 64,
                                        True, None, None)], out, TRAIN_KEY)
+        # the coordinator's microbatch, (1, S, H, KV, hd)
+        _check_flash_bwd(rng, dtype, [(1, TRAIN_SEQ, 32, 8, 64, True, None,
+                                       None)], out, COORD_KEY)
     return out
 
 
@@ -581,22 +611,103 @@ def _n_norms(cfg):
     return sum(_norm_widths(cfg).values())
 
 
+def _time_calls(eng):
+    """Wrap the engine's ``_call``: record, for each prefill and decode
+    step, the wall time of the call on the loop thread and of its task
+    function on the pool's thread (the difference is the runtime's cost
+    of the call: submission, dispatch, completion, result and release)."""
+    kinds = {eng._prefill: "prefill", eng._decode: "decode step"}
+    calls = []
+    real = eng._call
+
+    def timed_call(fn, *args):
+        inner = []
+
+        def timed_fn(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            inner.append(time.perf_counter() - t0)
+            return out
+
+        t0 = time.perf_counter()
+        out = real(timed_fn, *args)
+        calls.append((kinds[fn], time.perf_counter() - t0, inner[0]))
+        return out
+
+    eng._call = timed_call
+    return calls
+
+
+def runtime_costs(eng, calls):
+    """The runtime's cost of each call (its wall time minus its task
+    function's), and each call's epoch (``EpochStats``: makespan,
+    ``server_busy``), by kind of call; the epochs are the calls, in
+    order.  Checks that there is one epoch a call and that nothing
+    spilled."""
+    rt = eng._cluster.runtime
+    epochs = rt.epoch_dicts()
+    if len(epochs) != len(calls) or \
+            len(calls) != eng.n_prefills + eng.n_decode_steps:
+        raise AssertionError(f"{len(epochs)} epochs for {len(calls)} calls, "
+                             f"{eng.n_prefills} prefills and "
+                             f"{eng.n_decode_steps} decode steps")
+    mem = rt.memory_stats()
+    if mem["spill_count"] != 0:
+        raise AssertionError(f"the engine's pool spilled: {mem}")
+    out = {"epochs": len(epochs), "server_busy_s": rt.server_busy,
+           "spill_count": mem["spill_count"],
+           "peak_store_bytes": mem["peak_worker_bytes"],
+           "memory_limit": mem["memory_limit"]}
+    for kind in ("prefill", "decode step"):
+        idx = [i for i, c in enumerate(calls) if c[0] == kind]
+        cost = np.array([calls[i][1] - calls[i][2] for i in idx]) * 1e3
+        out[kind] = {
+            "calls": len(idx),
+            "runtime_ms_median": float(np.median(cost)),
+            "runtime_ms_p95": float(np.percentile(cost, 95)),
+            "call_ms_median": 1e3 * float(np.median(
+                [calls[i][1] for i in idx])),
+            "task_fn_ms_median": 1e3 * float(np.median(
+                [calls[i][2] for i in idx])),
+            "epoch_makespan_ms_median": 1e3 * float(np.median(
+                [epochs[i]["makespan"] for i in idx])),
+            "server_busy_ms_median": 1e3 * float(np.median(
+                [epochs[i]["server_busy"] for i in idx])),
+            "server_busy_ms_total": 1e3 * float(sum(
+                epochs[i]["server_busy"] for i in idx))}
+    return out
+
+
 def serve(cfg, params, prompts):
-    """The engine run of one slice, with every launch counter set to 0
-    just before it and read just after; checks each kernel's count."""
+    """The engine run of one slice, through the engine's warm Cluster with
+    events on, with every launch counter set to 0 just before it and read
+    just after; checks each kernel's count, one epoch a prefill or decode
+    step, no spill, and each request's enter, admit and exit events."""
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
-                        device="cuda")
+                        events=True, device="cuda")
+    calls = _time_calls(eng)
     _reset_counters()
     t0 = time.perf_counter()
     eng.start()
-    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS,
+                       tenant=f"tenant-{i % 2}")
+            for i, p in enumerate(prompts)]
     for r in reqs:
         if not r.done.wait(600):
             raise AssertionError(f"request {r.rid} did not finish")
     wall = time.perf_counter() - t0
     eng.stop()
     launches = {n: fn.launches for n, fn in _counters().items()}
+    runtime = runtime_costs(eng, calls)
+    counts = {k: eng.events.counts[k] for k in (
+        "request-enter", "request-admit", "request-exit")}
+    if counts != dict.fromkeys(counts, N_REQUESTS):
+        raise AssertionError(f"{cfg.name}: request events {counts}, "
+                             f"expected {N_REQUESTS} each")
+    print(f"{cfg.name} through repro_torch.core.Cluster: {runtime['epochs']} "
+          f"epochs = {eng.n_prefills} prefills + {eng.n_decode_steps} decode "
+          f"steps, spill_count 0, request events {json.dumps(counts)}")
     rms_shapes = dict(_counters()["rmsnorm_fwd"].shapes)
     for r in reqs:
         if len(r.out_tokens) != NEW_TOKENS:
@@ -642,8 +753,60 @@ def serve(cfg, params, prompts):
              "prefills": eng.n_prefills, "decode_steps": eng.n_decode_steps,
              "wall_s": wall, "tokens_per_s": eng.n_generated / wall,
              "latency_p50_s": float(np.percentile(lat, 50)),
-             "latency_p95_s": float(np.percentile(lat, 95))}
+             "latency_p95_s": float(np.percentile(lat, 95)),
+             "runtime": runtime}
     return reqs, launches, rms_calls, stats
+
+
+def _live_bytes():
+    """Bytes of live tensors on the card as they were requested, once its
+    queued work and Python's garbage are done.  ``memory_allocated()``
+    also counts the slack of a block the allocator did not split (up to
+    1 MiB a block), which moves with where a tensor lands."""
+    torch.cuda.synchronize()
+    gc.collect()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def serving_memory(cfg, params, prompts):
+    """Device memory stays flat across many requests: the pool's graph
+    keeps every call's args until compaction (8192 tasks), so none of
+    them may be a tensor made for one call.  A first wave of MAX_BATCH
+    requests warms an engine; FLOOD_REQUESTS more (the slice's prompts in
+    turn, 2 new tokens each, so most calls are prefills) must leave
+    the card's live tensor bytes (``_live_bytes``) where the first wave
+    left them."""
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                        device="cuda")
+    rt = eng._cluster.runtime
+
+    def wave(n):
+        reqs = [eng.submit(prompts[i % len(prompts)], max_new_tokens=2)
+                for i in range(n)]
+        for r in reqs:
+            if not r.done.wait(600):
+                raise AssertionError(f"request {r.rid} did not finish")
+        # the pool's server drops a released result on its own thread
+        for _ in range(1000):
+            if len(rt.results) == 0 and not any(eng.active):
+                break
+            time.sleep(0.01)
+        return _live_bytes()
+
+    eng.start()
+    try:
+        first = wave(MAX_BATCH)
+        after = wave(FLOOD_REQUESTS)
+    finally:
+        eng.stop()
+    out = {"requests": MAX_BATCH + FLOOD_REQUESTS, "prefills": eng.n_prefills,
+           "decode_steps": eng.n_decode_steps, "tasks": rt.g.n_rows,
+           "live_bytes_after_first_wave": first, "live_bytes_after": after}
+    if after != first or rt.g.tid_base != 0:
+        raise AssertionError(f"{cfg.name}: device memory not flat across "
+                             f"requests (or the graph compacted): {out}")
+    return out
 
 
 def time_ms(fn, flush, iters=25, warmup=3):
@@ -834,7 +997,7 @@ def kernel_numbers(inputs, launches, rms_calls, card):
         kind, arch, *call = key.split(":")
         extra = {}
         if kind == "rms_fwd":
-            inp = (*inp, call[0] == "training step")
+            inp = (*inp, call[0] in TRAINING_CALLS)
         r = make[kind](*inp)
         n = launches[arch][r["name"]]
         if kind.startswith("rms"):
@@ -922,6 +1085,40 @@ def rmsnorm_times(root):
         "zero_8_floats_ms": time_ms(z.zero_, flush),
         f"copy_{n}x{d}_bf16_ms": time_ms(lambda: out.copy_(x), flush)},
         "root": str(root), "card": card}), flush=True)
+
+
+def serving_runtime(root):
+    """The llama3.2-1b serving run of ``serve`` (its 16 requests on a fresh
+    engine, events on) through the engine of the checkout at ``root``
+    (already on ``sys.path``); prints its ``runtime_costs`` and tokens/s
+    as one JSON line, with the card."""
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import engine as engine_lib
+    if not Path(engine_lib.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {engine_lib.__file__}, not {root}'s")
+    build.build_all()
+    card = _card()
+    cfg = published_config(*SLICES[0])
+    with torch.inference_mode():
+        params = model_lib.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    eng = engine_lib.ServingEngine(cfg, params, max_batch=MAX_BATCH,
+                                   max_len=MAX_LEN, events=True,
+                                   device="cuda")
+    calls = _time_calls(eng)
+    t0 = time.perf_counter()
+    eng.start()
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS)
+            for p in make_prompts(cfg)]
+    for r in reqs:
+        if not r.done.wait(600):
+            raise AssertionError(f"request {r.rid} did not finish")
+    wall = time.perf_counter() - t0
+    eng.stop()
+    print(json.dumps({"serving_runtime": runtime_costs(eng, calls),
+                      "tokens_per_s": eng.n_generated / wall,
+                      "root": str(root), "card": card}), flush=True)
 
 
 def _card():
@@ -1049,8 +1246,22 @@ def run_slice(arch, widths, card):
                                  f"{want[i]}")
     print(f"{arch} requests {picks}: engine tokens equal the one-request "
           f"greedy reference")
+    memory = serving_memory(cfg, params, prompts)
+    print(f"{arch} device memory flat across {memory['requests']} requests "
+          f"({memory['prefills']} prefills, {memory['decode_steps']} decode "
+          f"steps, {memory['tasks']} tasks in the pool's graph): "
+          f"{memory['live_bytes_after']} live tensor bytes")
     print(f"{arch} launches over the engine run:", json.dumps(launches))
-    stats.update(card=card, n_params=n_params, parity=parity)
+    stats.update(card=card, n_params=n_params, parity=parity,
+                 memory=memory)
+    rc = stats["runtime"]
+    print(f"{arch} runtime cost a call (wall of _call minus its task "
+          f"function; {card}): " + "; ".join(
+              f"{k} median {rc[k]['runtime_ms_median']:.4f} ms, p95 "
+              f"{rc[k]['runtime_ms_p95']:.4f} ms over {rc[k]['calls']}"
+              for k in ("decode step", "prefill"))
+          + f"; server_busy {rc['server_busy_s']:.4f} s over "
+          f"{rc['epochs']} epochs")
     print(json.dumps({"slice": stats}))
     with torch.inference_mode():
         print(json.dumps({"profile": profile_slice(cfg, params, card)}))
@@ -1251,6 +1462,220 @@ def run_training(card):
     return launches, rms_calls
 
 
+def _coordinator(cfg, n_executors, timed=None, started=None):
+    """A ``MicrobatchCoordinator`` of the phase (params from seed 0), with
+    the training slice's AdamW settings; ``timed`` collects the wall time
+    of each microbatch's gradient function up to the loss's read-back
+    (which the task does next), and ``started`` the start of each."""
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.trainer import MicrobatchCoordinator
+    mc = MicrobatchCoordinator(cfg, n_executors=n_executors,
+                               n_microbatches=COORD_MICRO,
+                               scheduler="rsds_ws", device="cuda")
+    mc.opt = make_optimizer("adamw", **TRAIN_OPT)
+    mc.opt_state = mc.opt.init(mc.params)
+    if timed is not None:
+        grad = mc._grad
+
+        def timed_grad(params, batch):
+            t0 = time.perf_counter()
+            if started is not None:
+                started.append(t0)
+            out = grad(params, batch)
+            float(out[0][0])
+            timed.append(time.perf_counter() - t0)
+            return out
+
+        mc._grad = timed_grad
+    return mc
+
+
+def profile_coordinator_step(mc, batch, step_ms, card):
+    """Device busy time by kernel category and launches of one more
+    coordinator step (torch.profiler; every executor thread's kernels),
+    and the idle share against ``step_ms``, the unprofiled steps' median
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mc.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    by_cat = {}
+    for e in kernels:
+        cat = _category(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(by_cat.values())
+    return {"step_ms": 1e3 * step_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / (1e3 * step_ms),
+            "device_ms_by_category": by_cat,
+            "kernel_launches": sum(e.count for e in kernels), "card": card}
+
+
+def _first_difference(names, got, want):
+    """The first param leaf whose bits differ, or None."""
+    for n, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            return f"{n} (max abs diff {float((a.float() - b.float()).abs().max())})"
+    return None
+
+
+def run_coordinator(card):
+    """The coordinator slice: llama3.2-1b at full width trained through
+    ``MicrobatchCoordinator`` (global batch 4 x 2048 in 4 microbatches of
+    1 x 2048, 4 executors, rsds_ws, 2 steps, deterministic algorithms).
+    The loss is finite and falls; the params after step 1 are bit-equal
+    across 4 executors, 1 executor and 4 executors with executor 2 failed
+    mid-step, and within 5e-3 of one full-batch ``make_train_step`` step
+    from the same init and batch.  Returns its launch counts and rmsnorm
+    launches as ``run_training`` does (the call: a microbatch)."""
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_leaves, tree_map, tree_paths
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    cfg = published_config(TRAIN_ARCH, SLICES[0][1])
+    batch = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
+    torch.use_deterministic_algorithms(True)
+    walls, fn_walls, steps, live = [], [], [], []
+    mc = _coordinator(cfg, COORD_EXECUTORS, fn_walls)
+    names = [n for n, _ in tree_paths(mc.params)]
+    _reset_counters()
+    for step in range(COORD_STEPS):
+        n0 = len(fn_walls)
+        t0 = time.perf_counter()
+        r = mc.train_step(batch)
+        walls.append(time.perf_counter() - t0)
+        if r["timed_out"] or r["loss"] is None:
+            raise AssertionError(f"coordinator step {step + 1}: {r}")
+        r.update(wall_s=walls[-1], microbatch_fn_s=fn_walls[n0:])
+        steps.append(r)
+        if step == 0:
+            step1 = [p.detach().clone() for p in tree_leaves(mc.params)]
+        live.append(_live_bytes())
+    launches = {n: fn.launches for n, fn in _counters().items()}
+    rms_shapes = {n: dict(_counters()[n].shapes)
+                  for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
+    per_executor = mc._cluster.runtime.run_stats()["tasks_per_worker"]
+    profile = profile_coordinator_step(mc, batch, float(np.median(walls)),
+                                       card)
+    live.append(_live_bytes())
+    mc.close()
+    del mc
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in steps]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"coordinator losses {losses}")
+    # the pool's graph keeps each step's task closures: none may keep the
+    # step's microbatch gradients (4 x 2.47 GB) on the card
+    if len(set(live)) != 1:
+        raise AssertionError(f"coordinator: live tensor bytes after steps "
+                             f"1..{len(live)} {live}, expected one value")
+    print(f"{cfg.name} coordinator: live tensor bytes after each of "
+          f"{len(live)} steps {live[0]}")
+    n_attn, n_norm = _n_layers(cfg, "attn"), _n_norms(cfg)
+    per_micro = {"flash_attention": 2 * n_attn,
+                 "flash_attention_bwd": n_attn, "decode_attention": 0,
+                 "mamba_chunk_scan": 0, "rmsnorm_fwd": 2 * (n_norm - 1) + 1,
+                 "rmsnorm_bwd": n_norm}
+    want = {n: c * COORD_MICRO * COORD_STEPS for n, c in per_micro.items()}
+    shape = (TRAIN_SEQ, cfg.d_model)
+    if launches != want or rms_shapes != {n: {shape: want[n]}
+                                          for n in rms_shapes}:
+        raise AssertionError(f"coordinator launches {launches} by shape "
+                             f"{rms_shapes}, expected {want} ({per_micro} "
+                             f"a microbatch, all at {shape})")
+    print(f"{cfg.name} coordinator launches a microbatch: "
+          f"{json.dumps(per_micro)}; {COORD_MICRO} a step")
+    # the same step on 1 executor, and on 4 with executor 2 failed
+    others = {}
+    for n_exec, fail in ((1, None), (COORD_EXECUTORS, 2)):
+        timed, started = [], []
+        mc = _coordinator(cfg, n_exec, timed, started)
+        t0 = time.perf_counter()
+        r = mc.train_step(batch, fail_worker=fail)
+        r.update(wall_s=time.perf_counter() - t0, microbatch_fn_s=timed)
+        others[f"{n_exec} executors, fail_worker={fail}"] = r
+        if r["timed_out"] or r["loss"] != losses[0]:
+            raise AssertionError(f"coordinator, {n_exec} executors, "
+                                 f"fail_worker={fail}: {r}, step 1 of the "
+                                 f"4-executor run: {steps[0]}")
+        # the failure hit a running microbatch: it ran again elsewhere
+        dead = mc._cluster.runtime.dead
+        want = (set(), COORD_MICRO) if fail is None else \
+            ({fail}, COORD_MICRO + 1)
+        if (dead, len(started)) != want:
+            raise AssertionError(f"coordinator, {n_exec} executors, "
+                                 f"fail_worker={fail}: dead executors "
+                                 f"{dead}, {len(started)} microbatch runs "
+                                 f"started, expected {want}")
+        diff = _first_difference(names, tree_leaves(mc.params), step1)
+        mc.close()
+        del mc
+        gc.collect()
+        torch.cuda.empty_cache()
+        if diff is not None:
+            raise AssertionError(f"coordinator, {n_exec} executors, "
+                                 f"fail_worker={fail}: params after step 1 "
+                                 f"differ from the 4-executor run's first "
+                                 f"at {diff}")
+    print(f"{cfg.name} coordinator: params after step 1 bit-equal across "
+          f"{COORD_EXECUTORS} executors, 1 executor and {COORD_EXECUTORS} "
+          f"executors with executor 2 failed mid-microbatch (that "
+          f"microbatch ran again elsewhere)")
+    # one full-batch step from the same init and batch
+    opt = make_optimizer("adamw", **TRAIN_OPT)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      model_lib.init_params(gen, cfg, "cuda"))
+    params, _, _ = make_train_step(cfg, opt)(
+        params, opt.init(params),
+        {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    worst = 0.0
+    for n, a, b in zip(names, step1, tree_leaves(params)):
+        a, b = a.float(), b.detach().float()
+        err = (a - b).abs()
+        if bool((err > COORD_TOL + COORD_TOL * b.abs()).any()):
+            raise AssertionError(f"coordinator step 1 against the "
+                                 f"full-batch step: {n} off by "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    del params, step1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    print(f"{cfg.name} coordinator step 1 within {COORD_TOL} (abs and rel) "
+          f"of one full-batch step: largest difference {worst}")
+    stats = {"arch": cfg.name, "executors": COORD_EXECUTORS,
+             "microbatches": COORD_MICRO, "microbatch": [1, TRAIN_SEQ],
+             "scheduler": "rsds_ws", "losses": losses,
+             "full_batch_max_abs_diff": worst, "steps": steps,
+             "live_bytes_after_steps": live,
+             "step_1_again": others, "tasks_per_executor": per_executor,
+             "profile": profile, "card": card}
+    runs = [(f"{COORD_EXECUTORS} executors, step {r['step']}", r)
+            for r in steps] + [(f"{k}, step 1", r) for k, r in others.items()]
+    for what, r in runs:
+        print(f"{cfg.name} coordinator, {what} ({card}): wall "
+              f"{1e3 * r['wall_s']:.2f} ms, makespan "
+              f"{1e3 * r['makespan']:.2f} ms, server_busy "
+              f"{1e3 * r['server_busy']:.4f} ms; microbatch functions "
+              f"{' + '.join(f'{1e3 * w:.2f}' for w in r['microbatch_fn_s'])}"
+              f" = {1e3 * sum(r['microbatch_fn_s']):.2f} ms")
+    print(f"{cfg.name} coordinator step profile ({card}): device busy "
+          f"{profile['device_busy_ms']:.2f} ms of a {profile['step_ms']:.2f} "
+          f"ms step, idle share {profile['device_idle_share']:.4f}, "
+          f"{profile['kernel_launches']} launches")
+    print(json.dumps({"coordinator": stats}))
+    rms_calls = {f"{n}:microbatch:{cfg.d_model}": (per_micro[n],
+                                                   rms_shapes[n][shape])
+                 for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
+    return launches, rms_calls
+
+
 def hgmma_counts(build):
     """The number of HGMMA (wgmma) instructions in each bf16 flash and SSD
     kernel's SASS, from ``cuobjdump -sass`` of the built libraries; None if
@@ -1283,13 +1708,16 @@ def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-times", action="store_true",
                     help="only time the rmsnorm kernels (rmsnorm_times)")
+    ap.add_argument("--serving-runtime", action="store_true",
+                    help="only serve llama3.2-1b through the engine and "
+                         "print the runtime's cost a call (serving_runtime)")
     ap.add_argument("--root", type=Path, default=ROOT,
-                    help="checkout whose src/repro_torch --rmsnorm-times "
-                         "times (default: this one)")
+                    help="checkout whose src/repro_torch --rmsnorm-times or "
+                         "--serving-runtime runs (default: this one)")
     args = ap.parse_args(argv)
     root = args.root.resolve()
-    if root != ROOT and not args.rmsnorm_times:
-        ap.error("--root is for --rmsnorm-times")
+    if root != ROOT and not (args.rmsnorm_times or args.serving_runtime):
+        ap.error("--root is for --rmsnorm-times and --serving-runtime")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1300,6 +1728,9 @@ def main(argv=()) -> int:
     sys.path.insert(0, str(root / "src"))
     if args.rmsnorm_times:
         rmsnorm_times(root)
+        return 0
+    if args.serving_runtime:
+        serving_runtime(root)
         return 0
     # cuBLAS reads this when it starts; the training slice's restart check
     # runs with deterministic algorithms, which require it
@@ -1353,6 +1784,7 @@ def main(argv=()) -> int:
     for arch, widths in SLICES:
         launches[arch], rms_calls[arch] = run_slice(arch, widths, card)
     launches[TRAIN_KEY], rms_calls[TRAIN_KEY] = run_training(card)
+    launches[COORD_KEY], rms_calls[COORD_KEY] = run_coordinator(card)
 
     # 4. numbers
     rows = kernel_numbers(inputs, launches, rms_calls, card)

@@ -230,3 +230,17 @@ def check_no_grad(kernel: str, *tensors) -> None:
 def launch_check(kernel: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(counter, shape: tuple[int, int] | None = None) -> None:
+    """One launch of the kernel behind ``counter`` (a wrapper function):
+    ``counter.launches += 1``, and ``counter.shapes[shape] += 1`` where
+    the wrapper counts by shape, under one lock, so wrappers called from
+    several threads at once (a task runtime's workers) lose no count."""
+    with _count_lock:
+        counter.launches += 1
+        if shape is not None:
+            counter.shapes[shape] += 1

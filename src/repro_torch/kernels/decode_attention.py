@@ -73,7 +73,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         b, t, h, kv, hd, int(window or 0), float(scale),
         float(softcap or 0.0), n, stream)
     build.launch_check(NAME, err)
-    decode_attention.launches += 1
+    build.count_launch(decode_attention)
     return out
 
 

@@ -77,7 +77,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, s, t, h, kv, hd, int(causal), int(window or 0), float(scale),
         float(softcap or 0.0), int(q_offset), stream)
     build.launch_check(NAME, err)
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out, lse
 
 
@@ -128,7 +128,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(window or 0), float(scale), float(softcap or 0.0), int(q_offset),
         stream)
     build.launch_check(BWD_NAME, err)
-    flash_attention_bwd.launches += 1
+    build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

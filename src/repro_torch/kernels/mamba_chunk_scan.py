@@ -71,7 +71,7 @@ def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")],
         bs, s, nh, hd, ns, stream)
     build.launch_check(NAME, err)
-    mamba_chunk_scan.launches += 1
+    build.count_launch(mamba_chunk_scan)
     return y, hf
 
 

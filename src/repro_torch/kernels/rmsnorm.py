@@ -183,8 +183,7 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
         None if rstd is None else rstd.data_ptr(), _code(x), rows,
         x.shape[-1], float(eps), int(zero_centered), *plan, _stream(x))
     build.launch_check(NAME, err)
-    rmsnorm_fwd.launches += 1
-    rmsnorm_fwd.shapes[rows, x.shape[-1]] += 1
+    build.count_launch(rmsnorm_fwd, (rows, x.shape[-1]))
     return y, rstd
 
 
@@ -211,8 +210,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
         dx.data_ptr(), dscale.data_ptr(), part.data_ptr(), _code(x), rows, d,
         int(zero_centered), *plan, _stream(x))
     build.launch_check(NAME, err)
-    rmsnorm_bwd.launches += 1
-    rmsnorm_bwd.shapes[rows, d] += 1
+    build.count_launch(rmsnorm_bwd, (rows, d))
     return dx, dscale
 
 

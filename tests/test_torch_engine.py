@@ -1,5 +1,15 @@
 """The port's ServingEngine against the JAX model's greedy generation
-(tests/test_train_serve_ft.py::test_serving_engine_matches_reference)."""
+(tests/test_train_serve_ft.py::test_serving_engine_matches_reference),
+and its runtime side: every prefill and decode step is a task on the
+engine's warm ``repro_torch.core`` Cluster, run under inference mode on
+the pool's thread, with ``request-*`` events by tenant, ``observe()``, no
+spill at the default memory limit, no call's tensors kept by the pool
+after the call, and a failing step re-raised by ``stop()``."""
+import gc
+import threading
+import time
+import weakref
+
 import numpy as np
 import pytest
 
@@ -12,6 +22,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.serve import engine as engine_lib  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, _bucket  # noqa: E402
 
@@ -124,3 +135,141 @@ def test_recurrent_archs_prefill_exact_prompt_length(monkeypatch):
     prompts = [np.arange(n) % zamba.vocab_size for n in (9, 30)]
     _serve(zamba, params, prompts, 2, max_batch=2, max_len=64)
     assert sorted(seen) == [8, 29]
+
+
+def test_engine_runs_steps_on_its_cluster_with_request_events(monkeypatch):
+    """Each prefill and decode step is one epoch of the engine's pool, run
+    on the pool's worker thread under inference mode; every request
+    enters, is admitted and exits once, under its tenant; nothing spills
+    at the default limit; ``observe()`` snapshots the pool."""
+    from repro_torch.models import model as tmodel
+    cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
+    params = tmodel.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    seen = []
+    real_prefill, real_decode = tmodel.prefill, tmodel.decode_step
+
+    def spy(real, kind):
+        def call(*args):
+            seen.append((kind, torch.is_inference_mode_enabled(),
+                         threading.current_thread()))
+            return real(*args)
+        return call
+
+    monkeypatch.setattr(engine_lib.model_lib, "prefill",
+                        spy(real_prefill, "prefill"))
+    monkeypatch.setattr(engine_lib.model_lib, "decode_step",
+                        spy(real_decode, "decode"))
+    eng = ServingEngine(cfg, params, max_batch=2, max_len=64, events=True,
+                        device="cpu")
+    assert eng.observe()["n_workers"] == 1
+    eng.start()
+    rng = np.random.default_rng(4)
+    tenants = ["a", "b", "a"]
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, size=n),
+                       max_new_tokens=3, tenant=t)
+            for n, t in zip((4, 9, 6), tenants)]
+    try:
+        for r in reqs:
+            assert r.done.wait(120)
+        snap = eng.observe()
+    finally:
+        eng.stop()
+    kinds = [k for k, _, _ in seen]
+    assert kinds.count("prefill") == eng.n_prefills == 3
+    assert kinds.count("decode") == eng.n_decode_steps
+    assert all(mode for _, mode, _ in seen)
+    assert all(t is not eng._thread and t is not threading.main_thread()
+               for _, _, t in seen)
+    n_calls = eng.n_prefills + eng.n_decode_steps
+    assert snap["n_epochs"] == n_calls and snap["n_finished"] == n_calls
+    assert snap["open_epochs"] == [] and snap["dead"] == []
+    assert snap["spill_bytes"] == 0
+    mem = eng._cluster.runtime.memory_stats()
+    assert mem["spill_count"] == 0 and mem["memory_limit"] == \
+        engine_lib.DEFAULT_MEMORY_LIMIT
+    evs = eng.events.tail(10**5)
+    for kind in ("request-enter", "request-admit", "request-exit"):
+        got = {e["rid"]: e["tenant"] for e in evs if e["type"] == kind}
+        assert got == {r.rid: t for r, t in zip(reqs, tenants)}, kind
+    exits = {e["rid"]: e for e in evs if e["type"] == "request-exit"}
+    for r in reqs:
+        assert exits[r.rid]["n_tokens"] == len(r.out_tokens) == 3
+        assert exits[r.rid]["latency_s"] == r.finish_t - r.submit_t
+    admits = [e for e in evs if e["type"] == "request-admit"]
+    assert {e["slot"] for e in admits} <= {0, 1}
+    assert eng.events.counts["epoch-close"] == n_calls
+
+
+def test_engine_pool_keeps_no_tensor_of_a_finished_call(monkeypatch):
+    """The pool's graph holds every task's args until compaction, so the
+    engine passes it host arrays and the long-lived param and cache
+    trees: each call's token and position tensors and each prefill's
+    one-slot cache are freed once the call returns, while the engine
+    still serves."""
+    from repro_torch.models import model as tmodel
+    cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
+    params = tmodel.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    made = []
+    real_prefill, real_decode = tmodel.prefill, tmodel.decode_step
+
+    def prefill(params, cfg, tokens, cache):
+        made.extend(weakref.ref(t) for t in
+                    [tokens] + tree_leaves(cache))
+        return real_prefill(params, cfg, tokens, cache)
+
+    def decode_step(params, cfg, tokens, cache, pos):
+        made.extend((weakref.ref(tokens), weakref.ref(pos)))
+        return real_decode(params, cfg, tokens, cache, pos)
+
+    monkeypatch.setattr(engine_lib.model_lib, "prefill", prefill)
+    monkeypatch.setattr(engine_lib.model_lib, "decode_step", decode_step)
+    eng = ServingEngine(cfg, params, max_batch=2, max_len=64, device="cpu")
+    eng.start()
+    reqs = [eng.submit(np.arange(n) % cfg.vocab_size, max_new_tokens=3)
+            for n in (4, 9, 6, 7)]
+    try:
+        for r in reqs:
+            assert r.done.wait(120)
+        # the pool's server drops a released result on its own thread
+        for _ in range(1000):
+            gc.collect()
+            alive = [r() for r in made if r() is not None]
+            if not alive:
+                break
+            time.sleep(0.01)
+        n_tasks = eng._cluster.runtime.g.n_rows
+    finally:
+        eng.stop()
+    assert eng.n_prefills == 4 and n_tasks == \
+        eng.n_prefills + eng.n_decode_steps
+    assert len(made) == 2 * eng.n_decode_steps + eng.n_prefills * (
+        1 + len(tree_leaves(eng.cache)))
+    assert alive == []
+
+
+def test_failed_decode_step_makes_stop_raise(monkeypatch):
+    """A decode step that raises on the pool's thread is returned to the
+    loop thread, which fails: the request is released and ``stop()``
+    re-raises at once (the pool's worker survives, so no call waits out
+    its timeout)."""
+    from repro_torch.models import model as tmodel
+    cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
+    params = tmodel.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+
+    def boom(*args):
+        raise ValueError("decode failed")
+
+    monkeypatch.setattr(engine_lib.model_lib, "decode_step", boom)
+    eng = ServingEngine(cfg, params, max_batch=2, max_len=64, device="cpu")
+    eng.start()
+    req = eng.submit(np.arange(5), max_new_tokens=3)
+    assert req.done.wait(10)
+    with pytest.raises(RuntimeError, match="serving loop failed") as info:
+        eng.stop()
+    assert isinstance(info.value.__cause__, ValueError)
+    assert req.out_tokens == []
+    assert not eng._thread.is_alive()
+    assert eng._cluster.runtime.dead == set()

@@ -44,6 +44,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.device import default_device
     from repro_torch.models import model
     from repro_torch.serve.engine import ServingEngine
+    from repro_torch.train.trainer import MicrobatchCoordinator
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_config("llama3.2-1b", smoke=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -55,6 +56,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     params = model.init_params(torch.Generator(), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MicrobatchCoordinator(cfg)
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):

@@ -224,6 +224,77 @@ def test_flash_backward_passes_q_offset_where_signatures_declare():
 # flash: query rows with no live key are refused
 # ---------------------------------------------------------------------------
 
+def test_launch_counters_exact_under_concurrent_callers():
+    """Four threads launch at once, as a task runtime's executors do: the
+    wrappers' counters (``launches``, and rmsnorm's by (rows, d)) lose no
+    count.  The library and the CUDA checks are mocked out.  A counter
+    whose reads give up the GIL (as a thread switch between the read and
+    the write of ``+= 1`` would) shows that ``build.count_launch``
+    updates under its lock."""
+    import collections
+    import threading
+    import time
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+
+    class Yielding:
+        """launches and shapes whose reads sleep(0) before returning."""
+        def __init__(self):
+            self._n = 0
+            self.shapes = YieldingCounter()
+
+        @property
+        def launches(self):
+            n = self._n
+            time.sleep(0)
+            return n
+
+        @launches.setter
+        def launches(self, n):
+            self._n = n
+
+    class YieldingCounter(collections.Counter):
+        def __getitem__(self, key):
+            n = super().__getitem__(key)
+            time.sleep(0)
+            return n
+
+    n_threads, n_calls, n_bumps = 4, 50, 300
+    stream = mock.Mock(cuda_stream=7)
+    x, scale = torch.zeros(6, 64), torch.zeros(64)
+    yielding = Yielding()
+    rn.rmsnorm_fwd.launches = 0
+    rn.rmsnorm_fwd.shapes.clear()
+    barrier = threading.Barrier(n_threads)
+
+    def work():
+        barrier.wait()
+        for _ in range(n_calls):
+            rn.rmsnorm_fwd(x, scale, with_rstd=False)
+        for _ in range(n_bumps):
+            build.count_launch(yielding, (1, 2))
+
+    with mock.patch.object(build, "entry",
+                           lambda name, symbol=None: lambda *a: 0), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert rn.rmsnorm_fwd.launches == n_threads * n_calls
+    assert rn.rmsnorm_fwd.shapes == {(6, 64): n_threads * n_calls}
+    assert yielding.launches == n_threads * n_bumps
+    assert yielding.shapes == {(1, 2): n_threads * n_bumps}
+    rn.rmsnorm_fwd.launches = 0
+    rn.rmsnorm_fwd.shapes.clear()
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_rows_without_keys_matches_the_jax_mask(causal):
     """``rows_without_keys`` is true exactly when some row of the JAX
