@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --rmsnorm-times [--root DIR]
     python3 chip_smoke.py --serving-runtime [--root DIR]
+    python3 chip_smoke.py --parity-sweep
 
 The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
@@ -11,7 +12,9 @@ The second form only times the rmsnorm kernels of the checkout at DIR
 through DIR's engine and prints the runtime's cost a call
 (``serving_runtime``).  Run on two checkouts in turns (parent, change,
 change, parent) in one call, either compares them on one card.  The
-first form:
+fourth only measures how far zamba2's bf16 gradients move when one op
+runs its plain version, and how far each route lies from fp32
+(``parity_sweep``).  The first form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
@@ -30,7 +33,14 @@ first form:
    backward (fp32 1e-4, bf16 5e-2).  Decode and SSD run twice and must be
    bit-equal; decode must be free of NaN, also with lengths at and around
    a split boundary and a window that empties whole splits.  Both flash
-   wrappers must refuse a query row with no live key.
+   wrappers must refuse a query row with no live key.  The SSD backward
+   against its plain version (the exact reverse recurrence) on the
+   sweep, at zamba2's widths with and without h0, a ragged S and the
+   training shape (4, 2048, 80, 64, 64): twice bit-equal, every output
+   within rel. L2 ``SSD_BWD_REL_L2_BF16`` (bf16) or 1e-5 (fp32).  The
+   zamba2 training step's shapes too: the SSD forward at the training
+   shape, the flash backward at (4, 2048, 32, 32, 80) and rmsnorm at
+   (8192, 2560) and (8192, 5120).
 3. The serving slices, each at its published width in bf16 with random
    weights from a seeded generator, served through ``ServingEngine`` on
    its warm ``repro_torch.core`` Cluster with events on (16 requests in two
@@ -59,6 +69,19 @@ first form:
    the plain path at full width; 3 steps + checkpoint + restore + 3 steps
    equal 6 straight steps (2 layers of the full width, deterministic
    algorithms); step time, tokens/s, MFU and a profile of one step.
+   Then zamba2-2.7b trained the same way at its published width (1.98e9
+   params; the SSD forward and backward kernels, flash at hd 80, rmsnorm
+   at 2560 and 5120): the loss falls 0.5 nat; gradient parity, in fp32,
+   with the SSD also on its plain version; exact launch counts (a step: 90 SSD
+   forward, 45 backward, 18 + 9 flash, 217 + 109 rmsnorm); peak memory;
+   a profile of one step.  Then the optimized llama config (fused QKV and
+   gate/up): prefill and decode logits against the unfused model on the
+   concatenated weights within ``FUSED_REL_L2``, and 8 training steps.
+   Then remat "dots" against "full" and "none" at 4 x 2048 (step-1
+   gradients of "dots" against "full"; launches, peak memory and step
+   time of each), and Adafactor and Lion (8 steps each: the loss falls,
+   Adafactor's state is factored; state bytes and step time beside
+   AdamW's).
    Then the coordinator slice: llama3.2-1b at its published width through
    ``MicrobatchCoordinator`` (the same AdamW settings; global batch 4 x
    2048 in 4 microbatches of 1 x 2048, 4 executors, rsds_ws, 2 steps,
@@ -85,6 +108,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -141,15 +165,32 @@ SSD_SWEEP = [  # (b, s, nh, hd, ns): tests/test_kernels.py, plus ragged S
 N_REQUESTS, MAX_BATCH, MAX_LEN, NEW_TOKENS = 16, 8, 1024, 32
 FLOOD_REQUESTS = 200     # serving_memory's requests after its first wave
 TRAIN_ARCH, TRAIN_KEY = "llama3.2-1b", "llama3.2-1b-train"
+ZTRAIN_ARCH, ZTRAIN_KEY = "zamba2-2.7b", "zamba2-2.7b-train"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 TRAIN_OPT = dict(lr=1e-3, warmup=2, weight_decay=0.0)
 LOSS_MARGIN = 0.5        # nats the loss must fall over the 8 steps
 PARITY_BATCH, PARITY_SEQ = 2, 512
 PARITY_LOSS_REL, PARITY_GRAD_REL_L2 = 1e-2, 5e-2
+# the dtype of each training slice's gradient parity.  zamba2 runs it in
+# fp32: in bf16, rounding over its 54 layers moves every gradient leaf by
+# ~8% (rel. L2 against the fp32 model), and swapping any one op's kernel
+# for its plain version moves them by 4-8%, past the 5e-2 limit whichever
+# op it is (``--parity-sweep`` measures this; PERF.md section 6)
+PARITY_DTYPE = {"llama3.2-1b": "bfloat16", "zamba2-2.7b": "float32"}
 RESTART_TOL = 1e-6       # tests/test_train_serve_ft.py:83-103
 COORD_KEY = "llama3.2-1b-coordinator"
 COORD_EXECUTORS, COORD_MICRO, COORD_STEPS = 4, 4, 2
 COORD_TOL = 5e-3         # abs and rel, tests/test_train_serve_ft.py:143-146
+FUSED_KEY = "llama3.2-1b-optimized"
+# rel. L2 of the optimized (fused QKV and gate/up) model's logits against
+# the unfused model on the concatenated weights: the same function, but
+# cuBLAS rounds the wider bf16 products in another order, so each layer's
+# bf16 activations differ by an ulp here and there; the limit of the
+# kernel-vs-plain comparison of one bf16 model (LOGITS_REL_TOL)
+FUSED_REL_L2 = LOGITS_REL_TOL
+# "dots" against "full" step-1 gradients, a leaf, where not bit-equal
+DOTS_REL_L2 = 1e-3
+SSD_BWD_FP32_REL_L2 = 1e-5  # fp32 backward kernel: exact FMAs, another order
 # the rmsnorm calls of each path, checked and timed at their rows: (path,
 # call, rows, widths); a decode step's 8 slots and a 512-token prefill at
 # llama's d and at zamba2's d and 2 d (the gated norm), and the training
@@ -159,6 +200,8 @@ RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
              ("zamba2-2.7b", "decode step", MAX_BATCH, (2560, 5120)),
              ("zamba2-2.7b", "prefill", 512, (2560, 5120)),
              (TRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ, (2048,)),
+             (ZTRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ,
+              (2560, 5120)),
              (COORD_KEY, "microbatch", TRAIN_SEQ, (2048,))]
 # rows of the serving forward's sweep in --rmsnorm-times: a decode step,
 # prompts of 32-512 tokens, and on to the training step's, across the
@@ -276,10 +319,13 @@ def _check_ssd_rel(what, got, want, limit):
     return rel
 
 
-def _check_ssd(rng, dtype, cases, out, key):
+def _check_ssd(rng, dtype, cases, out, key, keep=None, with_h0=True,
+               split=True):
     """Each case twice (bit-equal), within ``tol`` of the plain version,
     and in bf16 y and h_final within the rel. L2 limit
-    ``SSD_REL_L2_BF16``; then a sequence split at h0."""
+    ``SSD_REL_L2_BF16``; then (``split``) a sequence split at h0.  With a
+    ``key``, the case ``keep`` is kept for the timing phase, with an h0
+    where ``with_h0`` (a prefill passes one, training none)."""
     from repro_torch.kernels import mamba_chunk_scan as mcs
     from repro_torch.kernels import ref
     tol = SSD_TOL[str(dtype).removeprefix("torch.")]
@@ -287,7 +333,7 @@ def _check_ssd(rng, dtype, cases, out, key):
     for b, s, nh, hd, ns in cases:
         args = _ssd_inputs(rng, b, s, nh, hd, ns, dtype)
         h0 = torch.from_numpy(rng.standard_normal((b, nh, hd, ns)).astype(
-            np.float32)).cuda() if key else None  # the model passes h0
+            np.float32)).cuda() if key and with_h0 else None
         y, h = mcs.mamba_chunk_scan(*args, h0=h0)
         y2, h2 = mcs.mamba_chunk_scan(*args, h0=h0)
         torch.cuda.synchronize()
@@ -303,8 +349,10 @@ def _check_ssd(rng, dtype, cases, out, key):
               f"hd={hd} ns={ns}: max abs err {err:.3e} (tol {tol}), rel L2 "
               f"y {rel_y:.3e} h_final {rel_h:.3e} (limit {limit}), "
               f"bit-equal twice")
-        if key and s == max(PREFILL_LENS):
+        if key and (b, s, nh, hd, ns) == keep:
             out[key] = (args, h0, err)
+    if not split:
+        return
     # split at h0: the first part's h_final feeds the rest
     x, dt, a, bm, cm, d = _ssd_inputs(rng, 2, 160, 4, 64, 64, dtype)
     cut = 96
@@ -324,6 +372,48 @@ def _check_ssd(rng, dtype, cases, out, key):
     print(f"mamba_chunk_scan {str(dtype)[6:]:8s} split at h0 (160 = 96 + "
           f"64): max abs err {err:.3e} (tol {tol}), rel L2 y {rel_y:.3e} "
           f"h_final {rel_h:.3e} (limit {limit})")
+
+
+def _check_ssd_bwd(rng, dtype, cases, out, key):
+    """The SSD backward kernel against ``ref.mamba_chunk_scan_bwd``: each
+    case twice (bit-equal), every output within the rel. L2 limit
+    (``SSD_BWD_REL_L2_BF16`` in bf16, ``SSD_BWD_FP32_REL_L2`` in fp32).
+    Cases are (b, s, nh, hd, ns, with h0); with a ``key`` the last case is
+    kept for the timing phase."""
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    from repro_torch.kernels import ref
+    name = str(dtype).removeprefix("torch.")
+    limit = (mcs.SSD_BWD_REL_L2_BF16 if dtype == torch.bfloat16
+             else SSD_BWD_FP32_REL_L2)
+    for b, s, nh, hd, ns, with_h0 in cases:
+        args = _ssd_inputs(rng, b, s, nh, hd, ns, dtype)
+        h0 = _randn(rng, (b, nh, hd, ns), torch.float32) if with_h0 \
+            else None
+        dy = _randn(rng, (b, s, nh, hd), dtype)
+        dhf = _randn(rng, (b, nh, hd, ns), torch.float32)
+        got = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+        again = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+        torch.cuda.synchronize()
+        what = f"mamba_chunk_scan_bwd {dtype} {(b, s, nh, hd, ns)}"
+        if not all(g is None or torch.equal(g, h)
+                   for g, h in zip(got, again)):
+            raise AssertionError(f"{what}: two calls differ")
+        del again
+        want = ref.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+        rels, err = {}, 0.0
+        for n, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd", "dh0"),
+                           got, want):
+            if w is None:
+                continue
+            rels[n] = _check_ssd_rel(f"{what} {n}", g, w, limit)
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        del got, want
+        print(f"mamba_chunk_scan_bwd {name:8s} b={b} s={s} nh={nh} hd={hd} "
+              f"ns={ns} h0={with_h0}: rel L2 "
+              f"{', '.join(f'{n} {r:.3e}' for n, r in rels.items())} "
+              f"(limit {limit}), max abs err {err:.3e}, bit-equal twice")
+        if key:
+            out[key] = ((*args, dy, dhf), h0, err)
 
 
 def _check_flash_refuses_empty_rows():
@@ -460,6 +550,9 @@ def check_kernels():
         _check_flash(rng, dtype, FLASH_SWEEP, out, None)
         _check_decode(rng, dtype, DECODE_SWEEP, out, None)
         _check_ssd(rng, dtype, SSD_SWEEP, out, None)
+        _check_ssd_bwd(rng, dtype, [(*c, i % 2 == 0)
+                                    for i, c in enumerate(SSD_SWEEP)]
+                       + [(1, 37, 4, 128, 128, True)], out, None)
         _check_rmsnorm(rng, dtype, RMS_SWEEP, out, None)
         _check_flash_bwd(rng, dtype, FLASH_SWEEP[:5], out, None)
         if not bf16:
@@ -481,7 +574,19 @@ def check_kernels():
                       lengths=[1, 255, 256, 257, 512, 700, 1000, MAX_LEN])
         _check_flash_refuses_empty_rows()
         _check_ssd(rng, dtype, [(1, s, 80, 64, 64) for s in PREFILL_LENS],
-                   out, "ssd:zamba2-2.7b")
+                   out, "ssd:zamba2-2.7b", keep=(1, max(PREFILL_LENS), 80,
+                                                 64, 64))
+        # the zamba2 training step's SSD, forward (no h0) and backward:
+        # zamba2's widths with and without h0, a ragged S, the training
+        # shape last (kept for the timing phase)
+        zshape = (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 64)
+        _check_ssd(rng, dtype, [zshape], out, "ssd:" + ZTRAIN_KEY,
+                   keep=zshape, with_h0=False, split=False)
+        _check_ssd_bwd(rng, dtype, [(1, 512, 80, 64, 64, True),
+                                    (1, 512, 80, 64, 64, False),
+                                    (2, 300, 80, 64, 64, True),
+                                    (*zshape, False)], out,
+                       "ssd_bwd:" + ZTRAIN_KEY)
         for path, call, n, ds in RMS_CALLS:
             _check_rmsnorm(rng, dtype, [(n, d) for d in ds], out,
                            f"{path}:{call}", rows=_rms_kinds(call))
@@ -491,6 +596,9 @@ def check_kernels():
         # the coordinator's microbatch, (1, S, H, KV, hd)
         _check_flash_bwd(rng, dtype, [(1, TRAIN_SEQ, 32, 8, 64, True, None,
                                        None)], out, COORD_KEY)
+        # zamba2's shared attention in training: hd 80, G = 1
+        _check_flash_bwd(rng, dtype, [(TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80,
+                                       True, None, None)], out, ZTRAIN_KEY)
     return out
 
 
@@ -582,6 +690,7 @@ def _counters():
             "flash_attention_bwd": fa.flash_attention_bwd,
             "decode_attention": da.decode_attention,
             "mamba_chunk_scan": mcs.mamba_chunk_scan,
+            "mamba_chunk_scan_bwd": mcs.mamba_chunk_scan_bwd,
             "rmsnorm_fwd": rn.rmsnorm_fwd,
             "rmsnorm_bwd": rn.rmsnorm_bwd}
 
@@ -719,6 +828,7 @@ def serve(cfg, params, prompts):
             "flash_attention_bwd": 0,
             "decode_attention": n_attn * eng.n_decode_steps,
             "mamba_chunk_scan": n_ssd * eng.n_prefills,
+            "mamba_chunk_scan_bwd": 0,
             "rmsnorm_fwd": n_norm * (eng.n_prefills + eng.n_decode_steps),
             "rmsnorm_bwd": 0}
     if eng.n_prefills != N_REQUESTS or launches != want:
@@ -889,16 +999,55 @@ def _ssd_row(args, h0, err):
         n = min(SSD_CHUNK, s - t0)
         pairs = n * (n + 1) // 2
         macs += b * (pairs * ns + nh * (pairs * hd + 2 * n * hd * ns))
+    h = 2 * h0.numel() * 4 if h0 is not None else b * nh * hd * ns * 4
     nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + x.numel() * x.element_size() + 2 * h0.numel() * 4)
+              + x.numel() * x.element_size() + h)
     return dict(
         name="mamba_chunk_scan", shape=[b, s, nh, hd, ns], err=err,
         flops=2 * macs, nbytes=nbytes,
         source="src/repro_torch/kernels/csrc/mamba_chunk_scan.cu",
         replaces="src/repro/kernels/mamba_chunk_scan.py:83",
+        plain_iters=25 if s * b <= 512 else 3,  # sequential: S steps
         kernel=lambda: mcs.mamba_chunk_scan(*args, h0=h0),
         plain=lambda: ref.mamba_chunk_scan(*args, h0=h0),
         library=None)  # no single PyTorch call computes the SSD
+
+
+def _ssd_bwd_row(args, h0, err):
+    """Bytes: x, dt, a, b, c, d, dy, dh_final and h0 read once; dx, ddt,
+    da, db, dc, dd and dh0 written once.  Operations: the multiply-adds of
+    the chunked backward at 64-row chunks, each 2 FLOPs: C B^T once per
+    (batch, chunk) over the causal pairs; per (batch, head, chunk) dy x^T,
+    W^T dy, Pd^T C and Pd B over the causal pairs and B dH^T, x dH,
+    dy H_in and the update of dH over all rows (the kernel also recomputes
+    the chunk states, which the count leaves out); at the bf16
+    tensor-core rate, the type of x, b, c and dy."""
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    from repro_torch.kernels import ref
+    x, dt, a, bm, cm, d, dy, dhf = args
+    b, s, nh, hd = x.shape
+    ns = bm.shape[-1]
+    macs = 0
+    for t0 in range(0, s, SSD_CHUNK):
+        n = min(SSD_CHUNK, s - t0)
+        pairs = n * (n + 1) // 2
+        macs += b * (pairs * ns + nh * (2 * pairs * (hd + ns)
+                                        + 4 * n * hd * ns))
+    h = 0 if h0 is None else 2 * h0.numel() * 4
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in args[:6]) \
+        + dy.numel() * dy.element_size() + dhf.numel() * 4 + h
+    return dict(
+        name="mamba_chunk_scan_bwd", shape=[b, s, nh, hd, ns], err=err,
+        flops=2 * macs, nbytes=nbytes,
+        source="src/repro_torch/kernels/csrc/mamba_chunk_scan_bwd.cu",
+        replaces="src/repro/kernels/mamba_chunk_scan.py:83",
+        note="the Pallas kernel is forward-only; JAX differentiates its "
+             "jnp chunked scan (repro/models/mamba2.py::_ssd_chunked); "
+             "this is the gradient of _ssd_kernel",
+        plain_iters=3,  # the plain backward: ~2 s a call at the training shape
+        kernel=lambda: mcs.mamba_chunk_scan_bwd(*args, h0=h0),
+        plain=lambda: ref.mamba_chunk_scan_bwd(*args, h0=h0),
+        library=None)  # no PyTorch call computes the SSD's gradient
 
 
 def _rms_fwd_row(args, err, with_rstd):
@@ -990,8 +1139,8 @@ def kernel_numbers(inputs, launches, rms_calls, card):
     timed as serving calls it, without rstd."""
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
     make = {"flash": _flash_row, "decode": _decode_row, "ssd": _ssd_row,
-            "rms_fwd": _rms_fwd_row, "rms_bwd": _rms_bwd_row,
-            "flash_bwd": _flash_bwd_row}
+            "ssd_bwd": _ssd_bwd_row, "rms_fwd": _rms_fwd_row,
+            "rms_bwd": _rms_bwd_row, "flash_bwd": _flash_bwd_row}
     out = []
     for key, inp in inputs.items():
         kind, arch, *call = key.split(":")
@@ -1005,7 +1154,9 @@ def kernel_numbers(inputs, launches, rms_calls, card):
                                      f"{r['shape'][-1]}"]
             extra = {"call": call[0], "per_call": per}
         ms = time_ms(r["kernel"], flush)
-        plain_ms = time_ms(r["plain"], flush)
+        plain_ms = time_ms(r["plain"], flush,
+                           iters=r.get("plain_iters", 25),
+                           warmup=min(3, r.get("plain_iters", 25)))
         library_ms = (None if r["library"] is None
                       else time_ms(r["library"], flush))
         t_ops, t_bytes = r["flops"] / PEAK_FLOPS, r["nbytes"] / PEAK_BYTES
@@ -1018,8 +1169,8 @@ def kernel_numbers(inputs, launches, rms_calls, card):
             "library_ms": library_ms, "path": arch, "shape": r["shape"],
             "dtype": "bfloat16", "flops": r["flops"], "bytes": r["nbytes"],
             "card": card, **extra,
-            **{k: r[k] for k in ("n_split", "note", "plan", "with_rstd")
-               if k in r}})
+            **{k: r[k] for k in ("n_split", "note", "plan", "with_rstd",
+                                 "plain_iters") if k in r}})
     return out
 
 
@@ -1134,6 +1285,8 @@ def _category(kernel_name):
         return "attention_kernels"
     if "ssd_kernel" in n:
         return "ssd_kernel"
+    if "ssd_bwd" in n:
+        return "ssd_bwd_kernels"
     if "rms_" in n:
         return "rmsnorm_kernels"
     if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
@@ -1271,10 +1424,79 @@ def run_slice(arch, widths, card):
     return launches, rms_calls
 
 
+def _params(cfg, as_cfg=None):
+    """The params a ``Trainer`` of ``cfg`` starts from (seed 0), as leaves
+    that require grad, in the dtype of ``as_cfg`` (default ``cfg``)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.config import dtype_of
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt, to = dtype_of(cfg), dtype_of(as_cfg or cfg)
+    # the leaves in the model's dtype; the fp32 ones (zamba2's a_log,
+    # dt_bias, d_skip) stay fp32
+    return tree_map(lambda p: (p.to(to) if p.dtype == dt else p)
+                    .requires_grad_(True),
+                    model_lib.init_params(gen, cfg, "cuda"))
+
+
+def parity_sweep(card):
+    """Where zamba2-2.7b's bf16 gradients stand (``--parity-sweep``): at
+    (2, 512) from the training slice's params, the gradients through the
+    kernels and with each of ops.mamba_chunk_scan, ops.flash_attention and
+    ops.rmsnorm (then all three) on its plain version, in bf16, and both
+    routes in fp32; each set's largest and median leaf rel. L2 against the
+    bf16 kernels' and against the fp32 kernels'."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_paths
+    build.build_all()
+    cfg = published_config(ZTRAIN_ARCH, dict(SLICES)[ZTRAIN_ARCH])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ + 1)).astype(
+            np.int32)).cuda()
+    plain = {"ssd": ("mamba_chunk_scan", ref.mamba_chunk_scan),
+             "flash": ("flash_attention", ref.flash_attention),
+             "rmsnorm": ("rmsnorm", ref.rmsnorm)}
+
+    def grads(c, which=()):
+        params = _params(cfg, c)
+        with mock.patch.multiple(ops, **{plain[w][0]: plain[w][1]
+                                         for w in which}) if which \
+                else contextlib.nullcontext():
+            loss, _ = model_lib.forward_loss(params, c, toks[:, :-1],
+                                             toks[:, 1:])
+            out = torch.autograd.grad(loss, [p for _, p in
+                                             tree_paths(params)])
+        del params
+        return float(loss.detach()), [g.cpu() for g in out]
+
+    _, ref32 = grads(cfg32)
+    ref16 = None  # the first run's
+    runs = [("bf16 kernels", cfg, ())] + [
+        (f"bf16, {'+'.join(w)} plain", cfg, w)
+        for w in (("ssd",), ("flash",), ("rmsnorm",),
+                  ("ssd", "flash", "rmsnorm"))] + [
+        ("fp32 kernels", cfg32, ()),
+        ("fp32, all plain", cfg32, ("ssd", "flash", "rmsnorm"))]
+    for what, c, which in runs:
+        loss, g = grads(c, which)
+        ref16 = g if ref16 is None else ref16
+        row = {"run": what, "loss": loss}
+        for name, base in (("vs_bf16_kernels", ref16), ("vs_fp32_kernels",
+                                                         ref32)):
+            rels = [_rel_l2(a, b) for a, b in zip(g, base)]
+            row[name] = {"max": max(rels), "median": float(np.median(rels))}
+        print(json.dumps({"parity_sweep": row, "card": card}), flush=True)
+        del g
+        gc.collect()
+
+
 def grad_parity(cfg, params):
     """forward_loss and its gradients on one (2, 512) batch through the
-    kernels, against the same with ops.flash_attention and ops.rmsnorm
-    patched to their plain versions (differentiated by autograd)."""
+    kernels, against the same with ops.flash_attention, ops.rmsnorm and
+    ops.mamba_chunk_scan patched to their plain versions (differentiated
+    by autograd: the SSD through its sequential recurrence)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_paths
@@ -1291,7 +1513,8 @@ def grad_parity(cfg, params):
 
     loss_k, grads_k = run()
     with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
-            mock.patch.object(ops, "rmsnorm", ref.rmsnorm):
+            mock.patch.object(ops, "rmsnorm", ref.rmsnorm), \
+            mock.patch.object(ops, "mamba_chunk_scan", ref.mamba_chunk_scan):
         loss_p, grads_p = run()
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     rels = {n: float((a.float() - b.float()).norm() / b.float().norm())
@@ -1300,8 +1523,8 @@ def grad_parity(cfg, params):
     res = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": loss_rel,
            "worst_leaf": worst, "worst_grad_rel_l2": rels[worst],
            "grad_rel_l2": rels}
-    print(f"{cfg.name} gradient parity at (B, S) = ({PARITY_BATCH}, "
-          f"{PARITY_SEQ}): loss {loss_k} vs plain {loss_p} (rel "
+    print(f"{cfg.name} gradient parity ({cfg.dtype}) at (B, S) = "
+          f"({PARITY_BATCH}, {PARITY_SEQ}): loss {loss_k} vs plain {loss_p} (rel "
           f"{loss_rel:.3e}, tol {PARITY_LOSS_REL}); largest gradient rel L2 "
           f"{rels[worst]:.3e} at {worst} (tol {PARITY_GRAD_REL_L2})")
     if not (loss_rel <= PARITY_LOSS_REL
@@ -1379,72 +1602,137 @@ def restart_check(cfg):
     return worst
 
 
-def run_training(card):
-    """Phase 3, the training slice; returns its launch counts and its
-    rmsnorm launches as ``run_slice`` does (the call: a training step)."""
+def _train_launches(cfg):
+    """Kernel launches of one training step of ``cfg`` (forward and
+    backward), and the rmsnorm launches by width as ((d, forward),
+    ...), ((d, backward), ...).  Under remat "full" or "dots" each
+    checkpointed repeat's forward runs twice (the forward, then the
+    recomputation in the backward: the kernels launch outside PyTorch's
+    dispatcher, so "dots" recomputes them too); the final norm lies
+    outside the repeats and runs once."""
+    k = 2 if cfg.remat in ("full", "dots") else 1
+    n_attn, n_ssd = _n_layers(cfg, "attn"), _n_layers(cfg, "mamba2")
+    widths = _norm_widths(cfg)
+    fwd = {d: k * n - (k - 1) * (d == cfg.d_model) for d, n in widths.items()}
+    per_step = {"flash_attention": k * n_attn, "flash_attention_bwd": n_attn,
+                "decode_attention": 0, "mamba_chunk_scan": k * n_ssd,
+                "mamba_chunk_scan_bwd": n_ssd,
+                "rmsnorm_fwd": sum(fwd.values()),
+                "rmsnorm_bwd": sum(widths.values())}
+    return per_step, {"rmsnorm_fwd": fwd, "rmsnorm_bwd": widths}
+
+
+def _trainer(cfg, optimizer, steps=TRAIN_STEPS):
+    """A ``Trainer`` of ``cfg`` (params from seed 0) with ``optimizer``,
+    TRAIN_BATCH x TRAIN_SEQ tokens a step, on one fixed batch."""
     from repro_torch.data.pipeline import SyntheticDataset
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = published_config(TRAIN_ARCH, SLICES[0][1])
-    if cfg.remat != "full":
-        raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}")
-    tr = Trainer(cfg, TrainerConfig(steps=TRAIN_STEPS,
-                                    global_batch=TRAIN_BATCH,
-                                    seq_len=TRAIN_SEQ, log_every=1,
-                                    eval_every=10**9),
-                 optimizer=make_optimizer("adamw", **TRAIN_OPT),
-                 device="cuda")
-    n_params = sum(p.numel() for p in tree_leaves(tr.params))
-    parity = grad_parity(cfg, tr.params)
 
     class FixedBatch(SyntheticDataset):
         def batch_at(self, step):
             return super().batch_at(0)
 
+    tr = Trainer(cfg, TrainerConfig(steps=steps, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, log_every=1,
+                                    eval_every=10**9),
+                 optimizer=optimizer, device="cuda")
     tr.dataset = FixedBatch(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    torch.use_deterministic_algorithms(True)
+    return tr
+
+
+def _train_steps(tr, what):
+    """Run ``tr``'s steps with every launch counter set to 0 just before
+    and read just after, and the peak of allocated device memory from just
+    before (the params and optimizer state included); check every kernel's
+    launches, and rmsnorm's by (rows, d), against ``_train_launches``.
+    Returns (losses, median step ms of steps 2.., per-step launches,
+    launches, rmsnorm launches by width, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     hist = tr.train()
+    peak = torch.cuda.max_memory_allocated()
     launches = {n: fn.launches for n, fn in _counters().items()}
     rms_shapes = {n: dict(_counters()[n].shapes)
                   for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
-    n_attn, n_norm = _n_layers(cfg, "attn"), _n_norms(cfg)
-    # remat "full" runs each layer's forward twice (the forward, then the
-    # recomputation in the backward); the final norm lies outside the
-    # checkpointed repeats and runs once
-    per_step = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-                "decode_attention": 0, "mamba_chunk_scan": 0,
-                "rmsnorm_fwd": 2 * (n_norm - 1) + 1,
-                "rmsnorm_bwd": n_norm}
-    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, expected "
-                             f"{want} ({per_step} per step)")
-    shape = (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)
-    if rms_shapes != {n: {shape: want[n]} for n in rms_shapes}:
-        raise AssertionError(f"training rmsnorm launches by (rows, d) "
-                             f"{rms_shapes}, expected all at {shape}")
-    print(f"{cfg.name} training launches per step: {json.dumps(per_step)}")
+    per_step, widths = _train_launches(tr.cfg)
+    n = len(hist)
+    want = {k: c * n for k, c in per_step.items()}
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    want_shapes = {k: {(rows, d): c * n for d, c in w.items()}
+                   for k, w in widths.items()}
+    if launches != want or rms_shapes != want_shapes:
+        raise AssertionError(f"{what}: launches {launches} by shape "
+                             f"{rms_shapes}, expected {want} by shape "
+                             f"{want_shapes} ({per_step} a step)")
     losses = [r["loss"] for r in hist]
-    print(f"{cfg.name} training losses: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    step_ms = 1e3 * float(np.median([r["time_s"] for r in hist[1:]]))
+    by_width = {f"{k}:training step:{d}": (c, rms_shapes[k][(rows, d)])
+                for k, w in widths.items() for d, c in w.items()}
+    print(f"{what}: launches a step {json.dumps(per_step)}; losses "
+          f"{losses}; step {step_ms:.2f} ms (median of steps 2-{n}); peak "
+          f"memory {peak} B")
+    return losses, step_ms, per_step, launches, by_width, peak
+
+
+def _mfu(cfg, n_params, step_ms):
+    """(model FLOPs a step, MFU): 6 N tokens plus the attention products,
+    4 hd FLOPs a live (causal) pair forward and 8 backward."""
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 12 * cfg.head_dim * pairs * TRAIN_BATCH * cfg.num_heads \
+        * _n_layers(cfg, "attn")
+    flops = 6 * n_params * TRAIN_BATCH * TRAIN_SEQ + attn
+    return flops, flops / (step_ms / 1e3) / PEAK_FLOPS
+
+
+def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
+    """Phase 3, a training slice: ``arch`` at its published width through
+    ``Trainer`` (AdamW, remat "full", 8 steps of 4 x 2048 tokens on a fixed
+    batch, deterministic algorithms), after a gradient-parity check at
+    (2, 512) from the same params in ``PARITY_DTYPE[arch]``; llama also
+    the restart check.  Returns its launch counts,
+    its rmsnorm launches as ``run_slice`` does (the call: a training
+    step), and its stats."""
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.optimizer import make_optimizer
+    cfg = published_config(arch, dict(SLICES)[arch])
+    if cfg.remat != "full":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}")
+    parity_cfg = dataclasses.replace(cfg, dtype=PARITY_DTYPE[arch])
+    parity = grad_parity(parity_cfg, _params(cfg, parity_cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = _trainer(cfg, make_optimizer("adamw", **TRAIN_OPT))
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    torch.use_deterministic_algorithms(True)
+    losses, step_ms, per_step, launches, rms_calls, peak = _train_steps(
+        tr, f"{cfg.name} training")
     if not losses[-1] < losses[0] - LOSS_MARGIN:
         raise AssertionError(f"loss did not fall by {LOSS_MARGIN}: {losses}")
-    step_ms = 1e3 * float(np.median([r["time_s"] for r in hist[1:]]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2  # causal
-    # attention products: 4 hd FLOPs a live pair forward, 8 backward
-    attn_flops = 12 * cfg.head_dim * pairs * TRAIN_BATCH * cfg.num_heads \
-        * n_attn
-    model_flops = 6 * n_params * tokens + attn_flops
+    # the loss on a batch it never saw: the tokens are uniform at random,
+    # so what the fixed batch taught cannot carry over; a model whose
+    # forward saw the next token would predict it there too
+    held_out = float(tr._eval_step(tr.params, tr._batch(SyntheticDataset(
+        cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(1)))["loss"])
+    print(f"{cfg.name} loss on an unseen batch after the 8 steps: "
+          f"{held_out} (the fixed batch's: {losses[-1]})")
+    if not held_out > losses[-1] + LOSS_MARGIN:
+        raise AssertionError(f"{cfg.name}: loss on an unseen batch "
+                             f"{held_out}, on the training batch "
+                             f"{losses[-1]}")
+    flops, mfu = _mfu(cfg, n_params, step_ms)
     stats = {"arch": cfg.name, "n_params": n_params, "batch": TRAIN_BATCH,
              "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
              "step_ms_median_2_to_8": step_ms,
-             "step_ms": [1e3 * r["time_s"] for r in hist],
-             "tokens_per_s": tokens / (step_ms / 1e3),
-             "model_flops_per_step": model_flops,
-             "mfu": model_flops / (step_ms / 1e3) / PEAK_FLOPS,
+             "step_ms": [1e3 * r["time_s"] for r in tr.history],
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+             "model_flops_per_step": flops, "mfu": mfu,
              "peak_flops": "989e12, H100 SXM dense bf16",
+             "held_out_loss": held_out,
+             "peak_memory_bytes": peak, "launches_per_step": per_step,
              "launches": launches, "parity": parity, "card": card}
     print(json.dumps({"train": stats}))
     print(json.dumps({"train_profile": profile_train_step(tr, step_ms,
@@ -1452,14 +1740,201 @@ def run_training(card):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    restart_check(cfg)
+    if arch == TRAIN_ARCH:
+        restart_check(cfg)
     torch.use_deterministic_algorithms(False)
     gc.collect()
     torch.cuda.empty_cache()
-    rms_calls = {f"{n}:training step:{cfg.d_model}": (per_step[n],
-                                                      rms_shapes[n][shape])
-                 for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
-    return launches, rms_calls
+    return launches, rms_calls, stats
+
+
+def _fused(params):
+    """The optimized model's params from the unfused model's: wqkv = the
+    concatenation of wq, wk and wv, wgu = stack(wi, wu) on the axis before
+    F (tests/test_optimized_configs.py's construction), over the stacked
+    repeat axis."""
+    def fuse(p):
+        if isinstance(p, dict):
+            p = {k: fuse(v) for k, v in p.items()}
+            if "wq" in p:
+                p["wqkv"] = torch.cat([p.pop(k) for k in ("wq", "wk", "wv")],
+                                      dim=-1)
+            if "wu" in p:
+                p["wgu"] = torch.stack([p.pop("wi"), p.pop("wu")], dim=-2)
+            return p
+        if isinstance(p, (list, tuple)):
+            return type(p)(fuse(v) for v in p)
+        return p
+    return fuse(params)
+
+
+def run_optimized(card, unfused):
+    """The optimized llama3.2-1b config (fused QKV and gate/up projections)
+    at full width: one prefill and one decode step's logits against the
+    unfused model on the concatenated weights, within ``FUSED_REL_L2``;
+    then 8 ``Trainer`` steps (AdamW, remat "full"): the loss falls by
+    ``LOSS_MARGIN`` and every kernel launches as the unfused model's.
+    ``unfused`` is the unfused training slice's stats."""
+    from repro_torch.configs.optimized import optimized_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.optimizer import make_optimizer
+    base = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    cfg = optimized_config(TRAIN_ARCH)
+    if not (cfg.fuse_qkv and cfg.fuse_glu) or cfg.remat != "full":
+        raise AssertionError(f"optimized {cfg.name}: {cfg}")
+    rng = np.random.default_rng(6)
+    b, s = 8, 128
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)).cuda()
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = model_lib.init_params(gen, base, "cuda")
+        outs = []
+        for c, p in ((base, params), (cfg, _fused(params))):
+            cache = model_lib.init_cache(c, b, 256, device="cuda")
+            pre, cache = model_lib.prefill(p, c, toks[:, :s], cache)
+            dec, _ = model_lib.decode_step(p, c, toks[:, s:], cache, pos)
+            outs.append((pre.float(), dec.float()))
+            del cache
+        del params, p
+    serving = {}
+    for name, w, a in zip(("prefill", "decode"), *outs):
+        rel = _rel_l2(a, w)
+        serving[name] = {"rel_l2_err": rel, "max_abs_err": float(
+            (a - w).abs().max()), "token_agreement": float(
+                (a.argmax(-1) == w.argmax(-1)).float().mean())}
+        if not rel <= FUSED_REL_L2:
+            raise AssertionError(f"optimized {cfg.name} {name} logits "
+                                 f"against the unfused model: rel L2 {rel} "
+                                 f"> {FUSED_REL_L2}")
+    del outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"optimized {cfg.name} (fuse_qkv, fuse_glu) against the unfused "
+          f"model on concatenated weights: {json.dumps(serving)} (limit "
+          f"{FUSED_REL_L2})")
+    tr = _trainer(cfg, make_optimizer("adamw", **TRAIN_OPT))
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    losses, step_ms, per_step, launches, _, peak = _train_steps(
+        tr, f"optimized {cfg.name} training")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not losses[-1] < losses[0] - LOSS_MARGIN:
+        raise AssertionError(f"optimized {cfg.name}: loss did not fall by "
+                             f"{LOSS_MARGIN}: {losses}")
+    stats = {"arch": cfg.name, "fuse_qkv": True, "fuse_glu": True,
+             "n_params": n_params, "serving_vs_unfused": serving,
+             "losses": losses, "step_ms_median_2_to_8": step_ms,
+             "unfused_step_ms_median_2_to_8": unfused["step_ms_median_2_to_8"],
+             "mfu": _mfu(cfg, n_params, step_ms)[1],
+             "peak_memory_bytes": peak,
+             "unfused_peak_memory_bytes": unfused["peak_memory_bytes"],
+             "launches": launches, "card": card}
+    print(json.dumps({"optimized": stats}))
+
+
+def run_remat(card):
+    """remat "dots" on llama3.2-1b at full width, 4 x 2048 tokens, beside
+    "full" and "none" (AdamW, 3 ``Trainer`` steps each on the fixed batch,
+    launches checked): the step-1 gradients of "dots" against "full"'s
+    (bit-equal, or within ``DOTS_REL_L2`` a leaf), and each mode's peak
+    memory and step time."""
+    from repro_torch.models.common import tree_paths
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_grad_fn
+    base = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    batch = None
+    modes, full_grads, cmp = {}, None, None
+    torch.use_deterministic_algorithms(True)
+    for remat in ("full", "dots", "none"):
+        cfg = dataclasses.replace(base, remat=remat)
+        tr = _trainer(cfg, make_optimizer("adamw", **TRAIN_OPT), steps=3)
+        if remat != "none":
+            if batch is None:
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in tr.dataset.batch_at(0).items()}
+            names, _ = zip(*tree_paths(tr.params))
+            _, grads = make_grad_fn(cfg)(tr.params, batch)
+            grads = [g for _, g in tree_paths(grads)]
+            if remat == "full":
+                full_grads = [g.cpu() for g in grads]
+            else:
+                rels = {n: _rel_l2(g, w.cuda()) for n, g, w in
+                        zip(names, grads, full_grads)}
+                equal = all(torch.equal(g.cpu(), w)
+                            for g, w in zip(grads, full_grads))
+                worst = max(rels, key=rels.get)
+                cmp = {"bit_equal": equal, "worst_leaf": worst,
+                       "worst_rel_l2": rels[worst]}
+                if not (equal or rels[worst] <= DOTS_REL_L2):
+                    raise AssertionError(f'remat "dots" step-1 gradients '
+                                         f'against "full": {cmp}')
+                full_grads = None
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        losses, step_ms, per_step, _, _, peak = _train_steps(
+            tr, f'{base.name} remat "{remat}"')
+        modes[remat] = {"peak_memory_bytes": peak, "step_ms": step_ms,
+                        "losses": losses, "launches_per_step": per_step}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    print(f'{base.name} remat "dots" step-1 gradients against "full": '
+          f'{json.dumps(cmp)}')
+    print(json.dumps({"remat": {"arch": base.name, "batch": TRAIN_BATCH,
+                                "seq_len": TRAIN_SEQ, "dots_vs_full": cmp,
+                                "modes": modes, "card": card}}))
+
+
+def _state_bytes(state):
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+
+def run_optimizers(card, adamw):
+    """Adafactor and Lion on llama3.2-1b at full width (8 ``Trainer`` steps
+    each, the fixed batch, TRAIN_OPT, remat "full"): the loss falls,
+    Adafactor's state is factored (every param of rank >= 2 keeps row and
+    column statistics, nothing its size), and each one's state bytes and
+    step time beside AdamW's (``adamw``, the training slice's stats)."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optimizer import make_optimizer
+    cfg = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    out = {"adamw": {"state_bytes": 8 * adamw["n_params"] + 4,
+                     "step_ms": adamw["step_ms_median_2_to_8"],
+                     "peak_memory_bytes": adamw["peak_memory_bytes"]}}
+    for name in ("adafactor", "lion"):
+        tr = _trainer(cfg, make_optimizer(name, **TRAIN_OPT))
+        state = tr.opt_state
+        if name == "adafactor":  # rows and columns, never a param's size
+            unfactored = []
+            tree_map(lambda p, st: unfactored.append(tuple(p.shape)) if (
+                p.dim() >= 2 and not (set(st) == {"vr", "vc"} and (
+                    st["vr"].numel() + st["vc"].numel() < p.numel())))
+                else None, tr.params, state["stats"])
+            if unfactored:
+                raise AssertionError(f"adafactor state not factored for "
+                                     f"params of shapes {unfactored}")
+        out[name] = {"state_bytes": _state_bytes(state)}
+        losses, step_ms, _, _, _, peak = _train_steps(
+            tr, f"{cfg.name} {name}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: the loss did not fall: {losses}")
+        out[name].update(step_ms=step_ms, losses=losses,
+                         peak_memory_bytes=peak)
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{cfg.name} optimizer state bytes and step ms ({card}): " +
+          "; ".join(f"{k} {v['state_bytes']} B, {v['step_ms']:.2f} ms"
+                    for k, v in out.items()))
+    print(json.dumps({"optimizers": {"arch": cfg.name, **out,
+                                     "card": card}}))
 
 
 def _coordinator(cfg, n_executors, timed=None, started=None):
@@ -1536,7 +2011,7 @@ def run_coordinator(card):
     from repro_torch.models.common import tree_leaves, tree_map, tree_paths
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import make_train_step
-    cfg = published_config(TRAIN_ARCH, SLICES[0][1])
+    cfg = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
     batch = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
     torch.use_deterministic_algorithms(True)
     walls, fn_walls, steps, live = [], [], [], []
@@ -1576,11 +2051,7 @@ def run_coordinator(card):
                              f"1..{len(live)} {live}, expected one value")
     print(f"{cfg.name} coordinator: live tensor bytes after each of "
           f"{len(live)} steps {live[0]}")
-    n_attn, n_norm = _n_layers(cfg, "attn"), _n_norms(cfg)
-    per_micro = {"flash_attention": 2 * n_attn,
-                 "flash_attention_bwd": n_attn, "decode_attention": 0,
-                 "mamba_chunk_scan": 0, "rmsnorm_fwd": 2 * (n_norm - 1) + 1,
-                 "rmsnorm_bwd": n_norm}
+    per_micro, _ = _train_launches(cfg)
     want = {n: c * COORD_MICRO * COORD_STEPS for n, c in per_micro.items()}
     shape = (TRAIN_SEQ, cfg.d_model)
     if launches != want or rms_shapes != {n: {shape: want[n]}
@@ -1711,6 +2182,9 @@ def main(argv=()) -> int:
     ap.add_argument("--serving-runtime", action="store_true",
                     help="only serve llama3.2-1b through the engine and "
                          "print the runtime's cost a call (serving_runtime)")
+    ap.add_argument("--parity-sweep", action="store_true",
+                    help="only measure zamba2's bf16 gradients against "
+                         "each plain version and fp32 (parity_sweep)")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch --rmsnorm-times or "
                          "--serving-runtime runs (default: this one)")
@@ -1732,6 +2206,9 @@ def main(argv=()) -> int:
     if args.serving_runtime:
         serving_runtime(root)
         return 0
+    if args.parity_sweep:
+        parity_sweep(_card())
+        return 0
     # cuBLAS reads this when it starts; the training slice's restart check
     # runs with deterministic algorithms, which require it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1739,6 +2216,7 @@ def main(argv=()) -> int:
     from repro_torch.kernels import rmsnorm as rn
 
     # 1. environment
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
@@ -1758,7 +2236,7 @@ def main(argv=()) -> int:
         ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
         ("ssd_kernel_sm90", "Li64ELi64E"), ("ssd_kernel_sm90", "Li64ELi128E"),
         ("ssd_kernel_sm90", "Li128ELi64E"),
-        ("ssd_kernel_sm90", "Li128ELi128E")] + sorted({
+        ("ssd_kernel_sm90", "Li128ELi128E"), ("ssd_bwd_kernel", "")] + sorted({
             (f"{kind}_kernel", "Li{}ELi{}E".format(*rn.launch_shape(
                 n, d, torch.bfloat16, backward=kind == "rms_bwd")[:2]))
             for _, call, n, ds in RMS_CALLS for d in ds
@@ -1783,11 +2261,18 @@ def main(argv=()) -> int:
     launches, rms_calls = {}, {}
     for arch, widths in SLICES:
         launches[arch], rms_calls[arch] = run_slice(arch, widths, card)
-    launches[TRAIN_KEY], rms_calls[TRAIN_KEY] = run_training(card)
+    launches[TRAIN_KEY], rms_calls[TRAIN_KEY], llama = run_training(card)
     launches[COORD_KEY], rms_calls[COORD_KEY] = run_coordinator(card)
+    launches[ZTRAIN_KEY], rms_calls[ZTRAIN_KEY], _ = run_training(
+        card, ZTRAIN_ARCH, ZTRAIN_KEY)
+    run_optimized(card, llama)
+    run_remat(card)
+    run_optimizers(card, llama)
 
     # 4. numbers
     rows = kernel_numbers(inputs, launches, rms_calls, card)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernel "
+          f"build included")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

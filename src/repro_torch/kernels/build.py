@@ -56,6 +56,12 @@ SIGNATURES = {
         # HD, NS, stream
         "mamba_chunk_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _P]},
+    "mamba_chunk_scan_bwd": {
+        # x, dt, a, b, c, d, h0 (or null), dy, dh_final (or null), dx, ddt,
+        # db, dc, da, dd, dh0 (or null), then fp32 scratch: states,
+        # db and dc partials, da and dd partials; dtype, B, S, NH, HD, NS,
+        # Q, stream
+        "mamba_chunk_scan_bwd": [_P] * 21 + [_I] * 7 + [_P]},
     "rmsnorm": {
         # x, scale, y, rstd (or null), dtype, rows, d, eps, zero_centered,
         # then the launch shape (kernels/rmsnorm.py Plan: vec, npt, tpr,

@@ -5,27 +5,27 @@ A CPU tensor runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 runs the hand-written kernel, which raises on what it does not take.
 There is no switch that routes CUDA tensors to the plain version.
 
-``flash_attention`` and ``rmsnorm`` are differentiable: when autograd
-records the call they run as a :class:`torch.autograd.Function` whose
-forward and backward each dispatch by device in the same way (the CUDA
-backward kernels on the card, ``ref.*_bwd`` on the CPU).  Otherwise (no
-grad mode, or no input that requires grad, as on the serving paths) the
-forward runs alone and saves nothing: the flash kernel then writes no
-log-sum-exp, and the rmsnorm kernel no rstd.  ``decode_attention`` and
-``mamba_chunk_scan`` have no backward; their kernels raise under autograd
-rather than return a detached result.
+``flash_attention``, ``rmsnorm`` and ``mamba_chunk_scan`` are
+differentiable: when autograd records the call they run as a
+:class:`torch.autograd.Function` whose forward and backward each dispatch
+by device in the same way (the CUDA backward kernels on the card,
+``ref.*_bwd`` on the CPU).  Otherwise (no grad mode, or no input that
+requires grad, as on the serving paths) the forward runs alone and saves
+nothing: the flash kernel then writes no log-sum-exp, and the rmsnorm
+kernel no rstd.  ``decode_attention`` has no backward; its kernel raises
+under autograd rather than return a detached result, as every kernel
+wrapper does when called directly.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_chunk_scan as _ssd
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels.decode_attention import \
     decode_attention as _decode_kernel
-from repro_torch.kernels.mamba_chunk_scan import \
-    mamba_chunk_scan as _ssd_kernel
 
 
 def _records(*tensors) -> bool:
@@ -57,6 +57,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=1.0, q_offset=0):
+    # the kernels take contiguous operands (a fused QKV projection's v is
+    # a strided view of the projection's output)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _records(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                      q_offset)
@@ -115,7 +118,30 @@ def decode_attention(q, k, v, *, lengths, window=None, softcap=None,
                           softcap=softcap, scale=scale)
 
 
+class _MambaChunkScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, h0, chunk):
+        fwd = (ref.mamba_chunk_scan if x.device.type == "cpu"
+               else _ssd.mamba_chunk_scan)
+        y, hf = fwd(x, dt, a, b, c, d, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dt, a, b, c, d, h0)
+        ctx.set_materialize_grads(False)  # an unused h_final: no zeros
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, dt, a, b, c, d, h0 = ctx.saved_tensors
+        bwd = (ref.mamba_chunk_scan_bwd if x.device.type == "cpu"
+               else _ssd.mamba_chunk_scan_bwd)
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dhf = None if dhf is None else dhf.contiguous()
+        dx, ddt, da, db, dc, dd, dh0 = bwd(x, dt, a, b, c, d, dy, dhf, h0=h0)
+        return dx, ddt, da, db, dc, dd, dh0, None
+
+
 def mamba_chunk_scan(x, dt, a, b, c, d, *, chunk=256, h0=None):
+    if _records(x, dt, a, b, c, d, *(() if h0 is None else (h0,))):
+        return _MambaChunkScan.apply(x, dt, a, b, c, d, h0, chunk)
     if x.device.type == "cpu":
         return ref.mamba_chunk_scan(x, dt, a, b, c, d, chunk=chunk, h0=h0)
-    return _ssd_kernel(x, dt, a, b, c, d, chunk=chunk, h0=h0)
+    return _ssd.mamba_chunk_scan(x, dt, a, b, c, d, chunk=chunk, h0=h0)

@@ -10,10 +10,10 @@ scan runs in fp32 and casts ``y`` to ``x.dtype``.  "fp32" means at least
 fp32: float64 inputs stay float64, so ``torch.autograd.gradcheck`` can
 hold the backward versions against finite differences.
 
-The backward versions (``rmsnorm_bwd``, ``flash_attention_bwd``) are the
-contract of the CUDA backward kernels.  The JAX package has no backward
-kernels: it differentiates its jnp oracles, and the tests hold these
-functions against ``jax.vjp`` of those.
+The backward versions (``rmsnorm_bwd``, ``flash_attention_bwd``,
+``mamba_chunk_scan_bwd``) are the contract of the CUDA backward kernels.
+The JAX package has no backward kernels: it differentiates its jnp
+oracles, and the tests hold these functions against ``jax.vjp`` of those.
 """
 from __future__ import annotations
 
@@ -230,10 +230,10 @@ def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """
     bs, s, nh, hd = x.shape
     ns = b.shape[-1]
-    h = (torch.zeros((bs, nh, hd, ns), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
-    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
-    a, d = a.float(), d.float()
+    xf, dtf, bf, cf = _f32(x), _f32(dt), _f32(b), _f32(c)
+    a, d = _f32(a), _f32(d)
+    h = (torch.zeros((bs, nh, hd, ns), dtype=xf.dtype, device=x.device)
+         if h0 is None else _f32(h0))
     ys = []
     for t in range(s):
         dtt = dtf[:, t]                                    # (B, NH)
@@ -244,3 +244,52 @@ def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   + d[None, :, None] * xf[:, t])
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y.to(x.dtype), h
+
+
+def mamba_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                         dy: torch.Tensor, dh_final: torch.Tensor | None,
+                         h0: torch.Tensor | None = None):
+    """Gradients of :func:`mamba_chunk_scan` for the output gradients ``dy``
+    (B,S,NH,HD) and ``dh_final`` (B,NH,HD,NS; None for zeros), by the
+    exact reverse recurrence.  With l_t = dt_t a, h_t = e^{l_t} h_{t-1} +
+    dt_t x_t (x) B_t and y_t = h_t C_t + D x_t, per (batch, head):
+
+      g_t   = dy_t (x) C_t + e^{l_{t+1}} g_{t+1}   (dh_final added at S)
+      dx_t  = dt_t g_t B_t + D dy_t
+      dB_t  = sum_h dt_t g_t^T x_t,     dC_t = sum_h h_t^T dy_t
+      dl_t  = e^{l_t} <g_t, h_{t-1}>,   ddt_t = a dl_t + x_t^T g_t B_t
+      da    = sum_{b,t} dt_t dl_t,      dD = sum_{b,t} <dy_t, x_t>
+      dh0   = e^{l_1} g_1
+
+    Returns (dx, ddt, da, db, dc, dd, dh0): dx, db and dc in x.dtype, the
+    rest fp32; dh0 is None when ``h0`` is None.  The states h_t are
+    recomputed forward first and kept, (S, B, NH, HD, NS) of them."""
+    bs, s, nh, hd = x.shape
+    ns = b.shape[-1]
+    xf, dtf, bf, cf, dyf = (_f32(t) for t in (x, dt, b, c, dy))
+    af, df = _f32(a), _f32(d)
+    h = (torch.zeros((bs, nh, hd, ns), dtype=xf.dtype, device=x.device)
+         if h0 is None else _f32(h0))
+    decay = torch.exp(dtf * af)                            # (B, S, NH)
+    states = [h]                                           # h_{t-1} at t
+    for t in range(s):
+        h = h * decay[:, t, :, None, None] + torch.einsum(
+            "bh,bn,bhd->bhdn", dtf[:, t], bf[:, t], xf[:, t])
+        states.append(h)
+    g = torch.zeros_like(h) if dh_final is None else _f32(dh_final).clone()
+    dx, ddt, dl, db, dc = (torch.empty_like(t) for t in (xf, dtf, dtf, bf,
+                                                         cf))
+    for t in reversed(range(s)):
+        g = g + torch.einsum("bhd,bn->bhdn", dyf[:, t], cf[:, t])
+        gb = torch.einsum("bhdn,bn->bhd", g, bf[:, t])      # g_t B_t
+        dx[:, t] = dtf[:, t, :, None] * gb + df[None, :, None] * dyf[:, t]
+        db[:, t] = torch.einsum("bh,bhdn,bhd->bn", dtf[:, t], g, xf[:, t])
+        dc[:, t] = torch.einsum("bhdn,bhd->bn", states[t + 1], dyf[:, t])
+        dl[:, t] = decay[:, t] * (g * states[t]).sum((-2, -1))
+        ddt[:, t] = af * dl[:, t] + (xf[:, t] * gb).sum(-1)
+        g = g * decay[:, t, :, None, None]
+    da = (dtf * dl).sum((0, 1))
+    dd = (dyf * xf).sum((0, 1, 3))
+    return (dx.to(x.dtype), ddt, da, db.to(x.dtype), dc.to(x.dtype), dd,
+            None if h0 is None else g)

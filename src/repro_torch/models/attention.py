@@ -7,8 +7,9 @@ Three execution modes share one code path, as in
   * decode:  q_len == 1 against a pre-filled cache at ``pos``.
 
 Unlike the JAX version, prefill and decode write the KV cache in place and
-return the same cache dict.  Not ported yet: ``fuse_qkv``, ``qk_norm``,
-MLA and cross-attention.
+return the same cache dict.  ``cfg.fuse_qkv`` keeps one (D, (H + 2 KV) hd)
+projection ``wqkv`` in place of ``wq``/``wk``/``wv``, as the JAX version
+does.  Not ported yet: ``qk_norm``, MLA and cross-attention.
 """
 from __future__ import annotations
 
@@ -25,18 +26,19 @@ from repro_torch.models.config import LayerSpec, ModelConfig, dtype_of
 Params = Any
 
 
-def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if cfg.fuse_qkv:
-        raise NotImplementedError("fuse_qkv: not ported yet")
+def _check_supported(spec: LayerSpec) -> None:
     if spec.qk_norm:
         raise NotImplementedError("qk_norm: not ported yet")
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
               device: torch.device) -> Params:
-    _check_supported(cfg, spec)
+    _check_supported(spec)
     dt = dtype_of(cfg)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.fuse_qkv:
+        return {"wqkv": dense_init(gen, d, ((h + 2 * kv) * hd,), dt, device),
+                "wo": dense_init(gen, h * hd, (d,), dt, device)}
     return {
         "wq": dense_init(gen, d, (h * hd,), dt, device),
         "wk": dense_init(gen, d, (kv * hd,), dt, device),
@@ -68,12 +70,17 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     When ``cache`` is given and S > 1 this is prefill (cache written at
     [0, S)); when S == 1 it is a decode step at ``positions[:, 0]``.
     """
-    _check_supported(cfg, spec)
+    _check_supported(spec)
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kv, hd)
-    v = (x @ params["wv"]).reshape(b, s, kv, hd)
+    if "wqkv" in params:  # one projection matmul instead of three
+        q, k, v = torch.split(x @ params["wqkv"], [h * hd, kv * hd, kv * hd],
+                              dim=-1)
+    else:
+        q, k, v = (x @ params[w] for w in ("wq", "wk", "wv"))
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
     q = common.apply_rope(q, positions, theta=cfg.rope_theta)
     k = common.apply_rope(k, positions, theta=cfg.rope_theta)
 

@@ -9,8 +9,13 @@ repeat uses the same params, but each repeat keeps its own cache.  Caches
 are written in place.  ``cfg.remat="full"`` checkpoints one repeat of the
 group body when autograd records it (``torch.utils.checkpoint``, as the
 JAX model ``jax.checkpoint``s its scan body): the repeat's activations are
-dropped after the forward and recomputed in the backward.  ``"dots"``
-raises ``NotImplementedError`` there.
+dropped after the forward and recomputed in the backward.  ``"dots"`` runs
+the same checkpoint with a selective policy, JAX's ``checkpoint_dots``:
+the outputs of the matrix products (``mm``, ``bmm``, ``addmm``,
+``baddbmm``) are kept and everything else is recomputed.  The port's
+kernels launch outside PyTorch's dispatcher, so the policy never sees
+them: they run again in the recomputation, as under ``"full"`` (and as
+``checkpoint_dots`` recomputes a ``pallas_call``, which is not a dot).
 
 Ported: mixers ``attn`` and ``mamba2`` and pure-MLP layers (``kind="none"``),
 with ``mlp="glu"`` (gated or plain) or ``"none"``.  Not yet: ``mla``,
@@ -18,10 +23,12 @@ with ``mlp="glu"`` (gated or plain) or ``"none"``.  Not yet: ``mla``,
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, mamba2
 from repro_torch.models.common import (rmsnorm, rmsnorm_init, tree_leaves,
@@ -34,6 +41,23 @@ Params = Any
 
 
 _MIXER_INIT = {"attn": attention.init_attn, "mamba2": mamba2.init_mamba2}
+
+# remat="dots": the ops whose outputs the backward keeps (JAX's dots)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)},
+}
 _CACHE_INIT = {"attn": attention.init_attn_cache,
                "mamba2": mamba2.init_mamba_cache}
 
@@ -132,8 +156,9 @@ def apply_group(params: Params, cfg: ModelConfig, gspec: GroupSpec,
     stacks each param's gradient once rather than adding a stack-sized
     zero tensor for every repeat's ``a[r]``."""
     training = cache is None and torch.is_grad_enabled()
-    if training and cfg.remat not in ("none", "full"):
-        raise NotImplementedError(f"remat={cfg.remat!r}: not ported yet")
+    if training and cfg.remat not in ("none", *_REMAT):
+        raise ValueError(f"remat={cfg.remat!r}: not one of 'none', 'full', "
+                         f"'dots'")
     slots = [p if spec.shared else _unstack(p, gspec.repeat)
              for spec, p in zip(gspec.pattern, params["slots"])]
 
@@ -147,8 +172,9 @@ def apply_group(params: Params, cfg: ModelConfig, gspec: GroupSpec,
         return x
 
     for r in range(gspec.repeat):
-        if training and cfg.remat == "full":
-            x = checkpoint(body, x, r, use_reentrant=False)
+        if training and cfg.remat in _REMAT:
+            x = checkpoint(body, x, r, use_reentrant=False,
+                           **_REMAT[cfg.remat])
         else:
             x = body(x, r)
     return x, cache

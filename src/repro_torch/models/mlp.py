@@ -1,5 +1,6 @@
 """Gated-linear-unit MLPs (SwiGLU / GeGLU) and the plain 2-matrix MLP.
-``fuse_glu`` is not ported yet."""
+``cfg.fuse_glu`` keeps the gate and up projections as one (D, 2, F)
+``wgu``, as the JAX version does."""
 from __future__ import annotations
 
 from typing import Any
@@ -12,16 +13,14 @@ from repro_torch.models.config import ModelConfig, dtype_of
 Params = Any
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.gated_mlp and cfg.fuse_glu:
-        raise NotImplementedError("fuse_glu: not ported yet")
-
-
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
              device: torch.device) -> Params:
-    _check_supported(cfg)
     dt = dtype_of(cfg)
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.gated_mlp and cfg.fuse_glu:
+        # (D, 2, F) layout: F stays contiguous after the split
+        return {"wgu": dense_init(gen, d, (2, f), dt, device),
+                "wo": dense_init(gen, f, (d,), dt, device)}
     p = {
         "wi": dense_init(gen, d, (f,), dt, device),   # gate (or sole up) proj
         "wo": dense_init(gen, f, (d,), dt, device),   # down proj
@@ -33,8 +32,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_mlp(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
-    _check_supported(cfg)
     act = ACTIVATIONS[cfg.activation]
+    if "wgu" in params:  # fused gate+up: one matmul
+        gu = (x @ params["wgu"].flatten(1)).unflatten(-1, (2, -1))
+        return (act(gu[..., 0, :]) * gu[..., 1, :]) @ params["wo"]
     h = act(x @ params["wi"])
     if "wu" in params:
         h = h * (x @ params["wu"])

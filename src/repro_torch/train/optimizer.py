@@ -2,16 +2,22 @@
 
 Same functional API: ``opt.init(params) -> state``;
 ``opt.apply(params, grads, state) -> (params, state, metrics)``, with the
-state tree ``{"m", "v", "step"}`` of AdamW (``step`` an int32 scalar), so
-checkpoints of the two packages share leaf keys.  Unlike the JAX version,
-``apply`` updates ``params``, ``m`` and ``v`` in place under
-``torch.no_grad()`` and returns the same trees: an H100 step at full width
-would otherwise hold a second copy of the params and of the fp32 moments,
-and the params stay the autograd leaves they were.  The schedule and bias
-corrections run as fp32 tensors on the params' device, as the JAX version
-computes them, so no step waits for the host.
+state trees of the JAX version (``step`` an int32 scalar), so checkpoints
+of the two packages share leaf keys:
 
-Ported: AdamW.  Not yet: Adafactor and Lion (``make_optimizer`` raises).
+* AdamW: ``{"m", "v", "step"}``, fp32 moments shaped as the params;
+* Adafactor: ``{"stats", "step"}``; every param of rank >= 2 has factored
+  second moments ``{"vr", "vc"}`` over its last two axes (a stacked
+  leaf's repeat axis included, so ``wgu`` (R, D, 2, F) keeps ``vr``
+  (R, D, 2) and ``vc`` (R, D, F)), every other ``{"v"}``;
+* Lion: ``{"m", "step"}``.
+
+Unlike the JAX version, ``apply`` updates the params and the state in
+place under ``torch.no_grad()`` and returns the same trees: an H100 step
+at full width would otherwise hold a second copy of the params and of the
+fp32 state, and the params stay the autograd leaves they were.  The
+schedule and bias corrections run as fp32 tensors on the params' device,
+as the JAX version computes them, so no step waits for the host.
 """
 from __future__ import annotations
 
@@ -72,22 +78,35 @@ class Optimizer:
         raise NotImplementedError
 
 
+def _step0(params) -> torch.Tensor:
+    leaves = tree_leaves(params)
+    return torch.zeros((), dtype=torch.int32,
+                       device=leaves[0].device if leaves else None)
+
+
+def _zeros_f32(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _clip_factor(c: OptConfig, grads) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the factor that scales ``grads`` to global norm <= grad_clip, the
+    norm), as :func:`clip_by_global_norm` applies it; each update scales
+    its own leaf, so no clipped copy of the gradients is held."""
+    norm = global_norm(grads)
+    return torch.clamp(c.grad_clip / (norm + 1e-9), max=1.0), norm
+
+
 class AdamW(Optimizer):
     def init(self, params):
-        leaves = tree_leaves(params)
-        device = leaves[0].device if leaves else None
-        zeros = lambda: tree_map(  # noqa: E731
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
-        return {"m": zeros(), "v": zeros(),
-                "step": torch.zeros((), dtype=torch.int32, device=device)}
+        return {"m": _zeros_f32(params), "v": _zeros_f32(params),
+                "step": _step0(params)}
 
     @torch.no_grad()
     def apply(self, params, grads, state):
         c = self.cfg
         step = state["step"] + 1
-        norm = global_norm(grads)
-        clip = torch.clamp(c.grad_clip / (norm + 1e-9), max=1.0)
+        clip, norm = _clip_factor(c, grads)
         lr = schedule(c, step)
         bc1 = 1 - c.b1 ** step.float()
         bc2 = 1 - c.b2 ** step.float()
@@ -106,8 +125,84 @@ class AdamW(Optimizer):
         return params, state, {"grad_norm": norm, "lr": lr}
 
 
+class Adafactor(Optimizer):
+    """Momentum-free Adafactor with factored second moments for rank >= 2
+    (:class:`repro.train.optimizer.Adafactor`): the factors are the row
+    and column means over a leaf's last two axes; the update is clipped to
+    an RMS of 1 over the whole (stacked) leaf."""
+
+    def init(self, params):
+        def stat(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if p.dim() >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], **z),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+            return {"v": torch.zeros(p.shape, **z)}
+        return {"stats": tree_map(stat, params), "step": _step0(params)}
+
+    @torch.no_grad()
+    def apply(self, params, grads, state):
+        c = self.cfg
+        step = state["step"] + 1
+        clip, norm = _clip_factor(c, grads)
+        lr = schedule(c, step)
+        decay = 1.0 - (step.float() + 1.0) ** -0.8
+
+        def upd(p, g, s):  # s: this leaf's stat dict
+            g = g.float() * clip
+            g2 = g.square() + 1e-30
+            if "vr" in s:
+                vr, vc = s["vr"], s["vc"]
+                vr.mul_(decay).add_((1 - decay) * g2.mean(-1))
+                vc.mul_(decay).add_((1 - decay) * g2.mean(-2))
+                denom = (vr[..., None] * vc[..., None, :]
+                         / (vr.mean(-1, keepdim=True)[..., None] + 1e-30)
+                         ).sqrt()
+            else:
+                s["v"].mul_(decay).add_((1 - decay) * g2)
+                denom = s["v"].sqrt()
+            u = g / (denom + c.eps)
+            rms = (u.square().mean() + 1e-30).sqrt()
+            u = u / torch.clamp(rms, min=1.0)  # update clipping (RMS <= 1)
+            pf = p.float()
+            u = u + c.weight_decay * pf
+            p.copy_(pf - lr * u)
+
+        # tree_map follows the params' structure, so each param leaf meets
+        # its whole stat dict
+        tree_map(upd, params, grads, state["stats"])
+        state["step"] = step
+        return params, state, {"grad_norm": norm, "lr": lr}
+
+
+class Lion(Optimizer):
+    """Sign updates from an interpolated momentum
+    (:class:`repro.train.optimizer.Lion`): the update interpolates with
+    ``b1``, the momentum with ``b2``; ``sign(0) = 0``."""
+
+    def init(self, params):
+        return {"m": _zeros_f32(params), "step": _step0(params)}
+
+    @torch.no_grad()
+    def apply(self, params, grads, state):
+        c = self.cfg
+        step = state["step"] + 1
+        clip, norm = _clip_factor(c, grads)
+        lr = schedule(c, step)
+
+        def upd(p, g, m):
+            g = g.float() * clip
+            u = torch.sign(c.b1 * m + (1 - c.b1) * g)
+            pf = p.float()
+            u = u + c.weight_decay * pf
+            p.copy_(pf - lr * u)
+            m.mul_(c.b2).add_((1 - c.b2) * g)
+
+        tree_map(upd, params, grads, state["m"])
+        state["step"] = step
+        return params, state, {"grad_norm": norm, "lr": lr}
+
+
 def make_optimizer(name: str, **kw) -> Optimizer:
-    if name in ("adafactor", "lion"):
-        raise NotImplementedError(f"optimizer {name!r}: not ported yet")
     cfg = OptConfig(name=name, **kw)
-    return {"adamw": AdamW}[name](cfg)
+    return {"adamw": AdamW, "adafactor": Adafactor, "lion": Lion}[name](cfg)

@@ -194,6 +194,79 @@ def test_ssd_kernel_precision_with_initial_state(cuda, hd, s):
         assert rel <= mcs.SSD_REL_L2_BF16
 
 
+SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "dd", "dh0")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,hd,ns,with_h0", [
+    (2, 128, 3, 32, 16, True),
+    (1, 64, 4, 16, 8, False),     # one chunk
+    (1, 512, 80, 64, 64, True),   # zamba2-2.7b's widths
+    (2, 200, 3, 64, 64, False),   # ragged S
+    (1, 37, 4, 128, 128, True),   # ragged single chunk, Q = 32
+    (1, 300, 2, 128, 64, False),  # HD 128 at Q = 64
+])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, b, s, nh, hd, ns,
+                                      with_h0):
+    """The backward kernel against ref.mamba_chunk_scan_bwd: every output
+    within rel. L2 1e-5 (fp32; exact FMAs, another summation order) or
+    SSD_BWD_REL_L2_BF16 (bf16), two calls bit-equal, one launch each."""
+    rng = np.random.default_rng(s + hd)
+    args = _ssd_inputs(rng, b, s, nh, hd, ns, dtype, cuda)
+    h0 = _randn(rng, (b, nh, hd, ns), torch.float32, cuda) if with_h0 \
+        else None
+    dy = _randn(rng, (b, s, nh, hd), dtype, cuda)
+    dhf = _randn(rng, (b, nh, hd, ns), torch.float32, cuda)
+    n = mcs.mamba_chunk_scan_bwd.launches
+    got = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+    again = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+    torch.cuda.synchronize()
+    assert mcs.mamba_chunk_scan_bwd.launches == n + 2
+    want = ref.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+    limit = 1e-5 if dtype == torch.float32 else mcs.SSD_BWD_REL_L2_BF16
+    assert (got[-1] is None) == (h0 is None)
+    for name, g, g2, w in zip(SSD_BWD_NAMES, got, again, want):
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and torch.equal(g, g2), name
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= limit, (name, rel)
+
+
+def test_zamba2_gradients_on_card_match_cpu(cuda):
+    """A small zamba2-shaped model (head_dim 80, remat "full"), fp32:
+    forward_loss and every gradient through the kernels (the SSD forward
+    and backward, flash, rmsnorm) against the CPU plain path on the same
+    params and batch; the SSD forward runs twice a mamba layer (remat),
+    the backward once."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = dataclasses.replace(configs.get_config("zamba2-2.7b", smoke=True),
+                              d_model=128, num_heads=2, num_kv_heads=2,
+                              head_dim=80, d_ff=256, remat="full")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    n_mamba = sum(sum(s.kind == "mamba2" for s in g.pattern) * g.repeat
+                  for g in cfg.groups)
+    res = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev).requires_grad_(True), params)
+        n = (mcs.mamba_chunk_scan.launches, mcs.mamba_chunk_scan_bwd.launches)
+        loss, _ = model.forward_loss(p, cfg, toks[:, :-1].to(dev),
+                                     toks[:, 1:].to(dev))
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        res.append((loss.detach().cpu(), [g.cpu() for g in grads]))
+        launched = (mcs.mamba_chunk_scan.launches - n[0],
+                    mcs.mamba_chunk_scan_bwd.launches - n[1])
+    assert launched == (2 * n_mamba, n_mamba)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-4, atol=2e-4)
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).norm() / b.norm()) < 1e-3
+
+
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_flash_kernels_refuse_rows_without_keys(cuda, direction):
     """A window with q_offset + S >= T + window leaves the last query row
@@ -511,8 +584,10 @@ def test_flash_kernels_at_the_training_shape(cuda):
 
 
 def test_serving_kernels_raise_under_autograd(cuda):
-    """decode_attention and mamba_chunk_scan have no backward: under grad
-    mode with an input that requires grad they raise, never detach."""
+    """The decode_attention and mamba_chunk_scan wrappers called directly
+    (decode has no backward; the SSD's gradient goes through
+    ops.mamba_chunk_scan): under grad mode with an input that requires
+    grad they raise, never detach."""
     q = torch.zeros(1, 1, 4, 64, device=cuda, requires_grad=True)
     k = torch.zeros(1, 8, 4, 64, device=cuda)
     lengths = torch.ones(1, dtype=torch.int32, device=cuda)

@@ -36,7 +36,8 @@ def test_port_has_sources():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "flash_attention.cu", "flash_attention_bwd.cu",
-        "decode_attention.cu", "mamba_chunk_scan.cu", "rmsnorm.cu"}
+        "decode_attention.cu", "mamba_chunk_scan.cu",
+        "mamba_chunk_scan_bwd.cu", "rmsnorm.cu"}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -1,7 +1,10 @@
 """The port's plain attention (repro_torch.kernels.ref / ops on CPU tensors)
 against the JAX oracles and the Pallas kernels, on the sweeps of
-tests/test_kernels.py.  The CUDA kernels themselves are held against the
-plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+tests/test_kernels.py; the kernels' contracts that the CPU can check (the
+wrappers' C calls with the library mocked, the SSD kernels' precision
+model and the SSD backward's chunked algebra).  The CUDA kernels
+themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 
@@ -167,7 +170,8 @@ def test_no_grad_guard_refuses_to_detach():
         build.check_no_grad("k", torch.zeros(2))
 
 
-@pytest.mark.parametrize("wrapper", ["decode", "ssd", "flash", "rmsnorm"])
+@pytest.mark.parametrize("wrapper", ["decode", "ssd", "ssd_bwd", "flash",
+                                     "rmsnorm"])
 def test_kernel_wrappers_refuse_autograd_inputs(wrapper):
     """The guard runs before any other check, so it shows on the CPU too:
     no wrapper returns a result detached from inputs that require grad."""
@@ -182,6 +186,10 @@ def test_kernel_wrappers_refuse_autograd_inputs(wrapper):
         elif wrapper == "ssd":
             mcs.mamba_chunk_scan(q[0], q[0, :, :, 0], torch.zeros(4),
                                  q[0, :, 0], q[0, :, 0], torch.zeros(4))
+        elif wrapper == "ssd_bwd":
+            mcs.mamba_chunk_scan_bwd(q[0], q[0, :, :, 0], torch.zeros(4),
+                                     q[0, :, 0], q[0, :, 0], torch.zeros(4),
+                                     q[0], None)
         elif wrapper == "flash":
             fa.flash_attention(q, k, k)
         else:
@@ -678,3 +686,157 @@ def test_ssd_precision_model_against_jax(rounding, within):
     rel_h = float((h - wh).norm() / wh.norm())
     worst = max(rel_y, rel_h)
     assert (worst <= mcs.SSD_REL_L2_BF16) == within, (rel_y, rel_h)
+
+
+# ---------------------------------------------------------------------------
+# the SSD backward kernel's chunked form
+# ---------------------------------------------------------------------------
+
+def _ssd_bwd_chunked(x, dt, a, b, c, d, dy, dhf, h0, q):
+    """Plain-torch emulation of csrc/mamba_chunk_scan_bwd.cu's algorithm
+    (its header's formulas), per (batch, head): a forward pass for the
+    state entering each chunk of ``q`` rows, then the chunks in reverse
+    carrying dH; db and dc as per-head partials summed over heads."""
+    bs, s, nh, hd = x.shape
+    ns = b.shape[-1]
+    pad = -s % q
+    p = lambda t: torch.cat([t, t.new_zeros(  # noqa: E731
+        (t.shape[0], pad, *t.shape[2:]))], 1)
+    x, dt, b, c, dy = map(p, (x, dt, b, c, dy))
+    nc = x.shape[1] // q
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    da, dd = torch.zeros_like(a), torch.zeros_like(a)
+    dh0 = torch.zeros(bs, nh, hd, ns, dtype=x.dtype)
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    for bi in range(bs):
+        for h in range(nh):
+            def chunk(k):
+                sl = slice(k * q, k * q + q)
+                cx, cdt = x[bi, sl, h], dt[bi, sl, h]
+                f = torch.cumsum(cdt * a[h], 0)
+                return (sl, cx, cdt, b[bi, sl], c[bi, sl], dy[bi, sl, h], f,
+                        cdt * torch.exp(f[-1] - f))
+            hs = [torch.zeros(hd, ns, dtype=x.dtype) if h0 is None
+                  else h0[bi, h]]
+            for k in range(nc - 1):
+                _, cx, _, cb, _, _, f, dec = chunk(k)
+                hs.append(torch.exp(f[-1]) * hs[-1] + (dec[:, None] * cx).T
+                          @ cb)
+            dh = dhf[bi, h].clone()
+            for k in reversed(range(nc)):
+                sl, cx, cdt, cb, cc, cdy, f, dec = chunk(k)
+                e = torch.where(tri, torch.exp(f[:, None] - f[None]), 0.0)
+                sm, pm = cc @ cb.T, cdy @ cx.T
+                w, pd, tm = sm * e * cdt, pm * e * cdt, sm * e * pm
+                bdh = cb @ dh.T
+                qv = (cx * bdh).sum(1)
+                dx[bi, sl, h] = dec[:, None] * bdh + w.T @ cdy + d[h] * cdy
+                db[bi, sl] += dec[:, None] * (cx @ dh) + pd.T @ cc
+                dyh = cdy @ hs[k]
+                dc[bi, sl] += torch.exp(f)[:, None] * dyh + pd @ cb
+                col = tm.sum(0)
+                df = (torch.exp(f) * (dyh * cc).sum(1) + (tm * cdt).sum(1)
+                      - cdt * col - dec * qv)
+                df[-1] += (torch.exp(f[-1]) * (dh * hs[k]).sum()
+                           + (dec * qv).sum())
+                dl = torch.flip(torch.cumsum(torch.flip(df, [0]), 0), [0])
+                ddt[bi, sl, h] = a[h] * dl + col + torch.exp(f[-1] - f) * qv
+                da[h] += (cdt * dl).sum()
+                dd[h] += (cdy * cx).sum()
+                dh = torch.exp(f[-1]) * dh + (torch.exp(f)[:, None] * cdy).T \
+                    @ cc
+            dh0[bi, h] = dh
+    return (dx[:, :s], ddt[:, :s], da, db[:, :s], dc[:, :s], dd, dh0)
+
+
+@pytest.mark.parametrize("q", [32, 64])
+@pytest.mark.parametrize("s", [20, 64, 150])   # ragged, one chunk, several
+def test_ssd_bwd_chunked_form_matches_plain(q, s):
+    """The backward kernel's chunked algebra, in float64, against the
+    plain reverse recurrence (ref.mamba_chunk_scan_bwd), to rounding."""
+    gen = torch.Generator().manual_seed(s + q)
+    bs, nh, hd, ns = 1, 2, 4, 3
+    r = lambda *sh: torch.randn(sh, dtype=torch.float64,  # noqa: E731
+                                generator=gen)
+    x, b, c, d, dy = r(bs, s, nh, hd), r(bs, s, ns), r(bs, s, ns), r(nh), \
+        r(bs, s, nh, hd)
+    dt = torch.rand(bs, s, nh, dtype=torch.float64, generator=gen) * 0.3 \
+        + 0.01
+    a = -torch.rand(nh, dtype=torch.float64, generator=gen) - 0.1
+    h0, dhf = r(bs, nh, hd, ns), r(bs, nh, hd, ns)
+    got = _ssd_bwd_chunked(x, dt, a, b, c, d, dy, dhf, h0, q)
+    want = ref.mamba_chunk_scan_bwd(x, dt, a, b, c, d, dy, dhf, h0=h0)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd", "dh0"), got,
+                          want):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10, msg=name)
+
+
+def test_ssd_bwd_wrapper_passes_what_the_signature_declares():
+    """The backward wrapper's call of its C entry point, with the library
+    and the CUDA checks mocked out: one argument per declared argtype, in
+    the order of csrc/mamba_chunk_scan_bwd.cu; null h0, dh_final and dh0
+    where none is given; the chunk length of ``bwd_chunk`` and fp32
+    scratch of the documented shapes; one launch counted.  Through
+    ``ops`` a meta tensor dispatches as a CUDA one: the forward kernel
+    runs under autograd and the backward kernel in the backward."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    calls = []
+
+    def entry(name, symbol=None):
+        return lambda *args: calls.append((name, args)) or 0
+
+    stream = mock.Mock(cuda_stream=7)
+    bs, s, nh, hd, ns = 2, 100, 3, 128, 128
+    x = torch.zeros(bs, s, nh, hd, device="meta")
+    dt = torch.zeros(bs, s, nh, device="meta")
+    a = torch.zeros(nh, device="meta")
+    bm = torch.zeros(bs, s, ns, device="meta")
+    n0 = mcs.mamba_chunk_scan_bwd.launches
+    with mock.patch.object(build, "entry", entry), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        out = mcs.mamba_chunk_scan_bwd(x, dt, a, bm, bm, a, x, None)
+        ((name, args),) = calls
+        assert name == mcs.BWD_NAME
+        assert len(args) == len(build.SIGNATURES[name][name])
+        assert args[6] is None and args[8] is None and args[15] is None
+        assert args[21:] == (0, bs, s, nh, hd, ns, 32, 7)
+        assert out[-1] is None and out[0].shape == x.shape
+        assert out[1].shape == dt.shape and out[3].shape == bm.shape
+        calls.clear()
+        xg = x.clone().requires_grad_(True)
+        y, _ = ops.mamba_chunk_scan(xg, dt, a, bm, bm, a)
+        assert [n for n, _ in calls] == [mcs.NAME]
+        torch.autograd.grad(y, xg, torch.zeros_like(y))
+        assert [n for n, _ in calls] == [mcs.NAME, mcs.BWD_NAME]
+    assert mcs.mamba_chunk_scan_bwd.launches - n0 == 2
+
+
+def test_ops_flash_attention_gives_the_kernels_contiguous_operands():
+    """A fused QKV projection's q, k and v are strided views of one
+    output; ops.flash_attention hands the kernel wrappers (which refuse a
+    strided operand) contiguous ones, with and without autograd.  A meta
+    tensor dispatches as a CUDA one."""
+    from unittest import mock
+    seen = []
+
+    def fwd(q, k, v, **kw):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        b, s, h, _ = q.shape
+        return (torch.empty_like(q),
+                torch.empty((b, h, s), device=q.device))
+
+    qkv = torch.zeros(2, 8, 3 * 4 * 16, device="meta")
+    q, k, v = (t.unflatten(-1, (4, 16)) for t in qkv.split(64, dim=-1))
+    assert not v.is_contiguous()
+    with mock.patch.object(fa, "flash_attention",
+                           lambda *a, **kw: fwd(*a, **kw)[0]), \
+            mock.patch.object(fa, "flash_attention_fwd", fwd):
+        ops.flash_attention(q, k, v)
+        ops.flash_attention(q, k, v.requires_grad_(True))
+    assert seen == [True, True]

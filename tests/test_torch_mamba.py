@@ -1,9 +1,11 @@
 """The port's Mamba-2 SSD and block against the JAX package, on the CPU:
 the plain ``mamba_chunk_scan`` against the JAX sequential oracle and the
-Pallas kernel in interpret mode (the sweeps of tests/test_kernels.py), and
-``apply_mamba2`` against the JAX block on bridged params.  The CUDA kernel
-itself is held against the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+Pallas kernel in interpret mode (the sweeps of tests/test_kernels.py), its
+plain backward ``mamba_chunk_scan_bwd`` against ``jax.vjp`` of the JAX
+chunked scan and of the sequential oracle, the autograd wiring of
+``ops.mamba_chunk_scan`` (gradcheck), and ``apply_mamba2`` against the JAX
+block on bridged params.  The CUDA kernels themselves are held against the
+plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 
@@ -24,6 +26,12 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import mamba2 as tmamba  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_kernels.py (SSD sweeps)
+# Gradients against jax.vjp (tests/test_torch_train.py): each fp32
+# gradient within this relative L2; in bf16 the JAX vjp rounds the
+# gradients of x, b and c to bf16 where the port's plain backward rounds
+# once at the end, a few bf16 steps apart (elementwise).
+GRAD_REL_L2 = 1e-4
+GRAD_TOL_BF16 = dict(rtol=5e-2, atol=5e-2)
 
 SWEEP = [  # (b, s, nh, hd, ns, chunk): tests/test_kernels.py
     (2, 128, 3, 32, 16, 32),
@@ -94,6 +102,112 @@ def test_plain_ssd_keeps_x_dtype():
     y, h = ref.mamba_chunk_scan(x.bfloat16(), dt, a, bm.bfloat16(),
                                 cm.bfloat16(), d)
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+
+
+# (b, s, nh, hd, ns, chunk, with h0): one chunk, several, a ragged S
+BWD_CASES = [(1, 16, 2, 8, 4, 16, True),
+             (2, 48, 3, 8, 4, 16, False),
+             (1, 37, 2, 8, 4, 16, True)]
+NAMES = ("x", "dt", "a", "b", "c", "d", "h0")
+
+
+def _jax_ssd(oracle, s, chunk, with_h0):
+    """The JAX forward as a function of (x, dt, a, b, c, d[, h0]) ->
+    (y, h_final): the chunked scan of the JAX model (zero-padded to whole
+    chunks, as apply_mamba2 pads, h0 zeros when not given) or the
+    sequential oracle."""
+    def f(x, dt, a, b, c, d, h0=None):
+        if oracle == "jax_ref":
+            return jref.mamba_chunk_scan(x, dt, a, b, c, d, h0=h0)
+        pad = -s % chunk
+        padded = [jnp.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2))
+                  for t in (x, dt, b, c)]
+        if h0 is None:
+            h0 = jnp.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]),
+                           jnp.float32)
+        y, hf = jmamba._ssd_chunked(padded[0], padded[1], a, padded[2],
+                                    padded[3], d, h0, chunk)
+        return y[:, :s].astype(x.dtype), hf
+    return f
+
+
+@pytest.mark.parametrize("oracle", ["ssd_chunked", "jax_ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,nh,hd,ns,chunk,with_h0", BWD_CASES)
+def test_plain_ssd_bwd_matches_jax_vjp(oracle, dtype, b, s, nh, hd, ns,
+                                       chunk, with_h0):
+    """ref.mamba_chunk_scan_bwd, the exact reverse recurrence, against
+    jax.vjp of the JAX chunked scan and of the sequential oracle: x, b and
+    c (and dy) in ``dtype``, the rest fp32."""
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(s + nh)
+    arrs = list(_ssd_inputs(s + nh, b, s, nh, hd, ns))
+    if with_h0:
+        arrs.append(rng.standard_normal((b, nh, hd, ns)).astype(np.float32))
+    dy = rng.standard_normal((b, s, nh, hd)).astype(np.float32)
+    dhf = rng.standard_normal((b, nh, hd, ns)).astype(np.float32)
+    low = (0, 3, 4)  # x, b, c in dtype
+    jargs = [jnp.asarray(a, jdt if i in low else jnp.float32)
+             for i, a in enumerate(arrs)]
+    targs = [torch.from_numpy(a).to(tdt if i in low else torch.float32)
+             for i, a in enumerate(arrs)]
+    f = _jax_ssd(oracle, s, chunk, with_h0)
+    want = jax.jit(lambda p, c: jax.vjp(f, *p)[1](c))(
+        jargs, (jnp.asarray(dy, jdt), jnp.asarray(dhf)))
+    got = ref.mamba_chunk_scan_bwd(*targs[:6], torch.from_numpy(dy).to(tdt),
+                                   torch.from_numpy(dhf),
+                                   h0=targs[6] if with_h0 else None)
+    assert (got[-1] is None) == (not with_h0)
+    for name, g, w, t in zip(NAMES, got, want, targs):
+        assert g.dtype == t.dtype, name
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if dtype == "float32":
+            rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+            assert rel < GRAD_REL_L2, (name, rel)
+        else:
+            np.testing.assert_allclose(g, w, **GRAD_TOL_BF16, err_msg=name)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ops_mamba_chunk_scan_gradcheck(with_h0):
+    """The autograd function of ops.mamba_chunk_scan (forward and
+    ref.mamba_chunk_scan_bwd, on the CPU) against finite differences, in
+    float64; a ragged-free small case with h_final used too."""
+    gen = torch.Generator().manual_seed(3)
+    b, s, nh, hd, ns = 1, 5, 2, 3, 4
+    r = lambda *sh: torch.randn(sh, dtype=torch.float64,  # noqa: E731
+                                generator=gen)
+    args = [r(b, s, nh, hd),
+            torch.rand(b, s, nh, dtype=torch.float64, generator=gen) * 0.5
+            + 0.05,
+            -torch.rand(nh, dtype=torch.float64, generator=gen) - 0.1,
+            r(b, s, ns), r(b, s, ns), r(nh)]
+    if with_h0:
+        args.append(r(b, nh, hd, ns))
+    args = [a.requires_grad_(True) for a in args]
+
+    def f(*t):
+        y, hf = ops.mamba_chunk_scan(*t[:6], h0=t[6] if with_h0 else None)
+        return y, hf
+    assert torch.autograd.gradcheck(f, tuple(args))
+
+
+def test_ops_mamba_chunk_scan_records_only_when_asked():
+    """Serving (no grad, or no input that requires grad) runs the forward
+    alone; under autograd the function's backward reaches a, d, dt and
+    the rest, with h_final unused (no zeros materialized for it)."""
+    x, dt, a, bm, cm, d = map(torch.from_numpy,
+                              _ssd_inputs(7, 1, 10, 2, 8, 4))
+    y, _ = ops.mamba_chunk_scan(x, dt, a, bm, cm, d)
+    assert y.grad_fn is None
+    a = a.requires_grad_(True)
+    with torch.no_grad():
+        assert ops.mamba_chunk_scan(x, dt, a, bm, cm, d)[0].grad_fn is None
+    y, _ = ops.mamba_chunk_scan(x, dt, a, bm, cm, d)
+    assert y.grad_fn is not None
+    (da,) = torch.autograd.grad(y.sum(), a)
+    assert da.shape == a.shape and bool(torch.isfinite(da).all())
 
 
 @pytest.fixture(scope="module")
@@ -183,3 +297,18 @@ def test_ssd_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not CUDA"):
         mcs.mamba_chunk_scan(*arrs)
     assert mcs.mamba_chunk_scan.launches == 0
+    bwd0 = mcs.mamba_chunk_scan_bwd.launches
+    with pytest.raises(ValueError, match="not CUDA"):
+        mcs.mamba_chunk_scan_bwd(*arrs, torch.zeros(1, 8, 2, 16), None)
+    assert mcs.mamba_chunk_scan_bwd.launches == bwd0
+
+
+@pytest.mark.parametrize("hd,ns,q", [(64, 64, 64), (128, 64, 64),
+                                     (64, 128, 64), (128, 128, 32),
+                                     (8, 8, 64)])
+def test_ssd_bwd_chunk_fits_shared_memory(hd, ns, q):
+    """The backward kernel's chunk length: 64 rows where its shared memory
+    fits a CTA on the H100, else 32; every shape the forward takes fits
+    at one of them."""
+    assert mcs.bwd_chunk(hd, ns) == q
+    assert mcs.bwd_smem_bytes(q, hd, ns) <= mcs.MAX_SMEM

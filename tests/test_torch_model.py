@@ -267,3 +267,98 @@ def test_unported_layers_raise(spec):
     cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         blocks.init_layer(torch.Generator(), cfg, LayerSpec(**spec), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the optimized configs: fused QKV and gate/up projections
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+def test_optimized_config_matches_jax(arch):
+    from repro.configs.optimized import optimized_config as jopt_config
+    from repro_torch.configs.optimized import optimized_config
+    cj, ct = jopt_config(arch), optimized_config(arch)
+    for name in ("fuse_qkv", "fuse_glu", "seq_parallel", "remat",
+                 "optimizer", "d_model", "num_layers"):
+        assert getattr(ct, name) == getattr(cj, name), name
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        optimized_config("gemma-7b")
+
+
+def test_fused_qkv_matches_unfused():
+    """tests/test_optimized_configs.py::test_fused_qkv_matches_unfused on
+    the port: the fused weight is the concatenation of wq, wk and wv."""
+    from repro_torch.models import attention
+    from repro_torch.models.config import LayerSpec
+    base = tconfigs.get_config("llama3.2-1b", smoke=True)
+    spec = LayerSpec(kind="attn", mlp="glu")
+    p = attention.init_attn(torch.Generator().manual_seed(0), base, spec,
+                            "cpu")
+    pf = {"wqkv": torch.cat([p["wq"], p["wk"], p["wv"]], dim=-1),
+          "wo": p["wo"]}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 16, base.d_model)).astype(np.float32))
+    pos = torch.arange(16)[None].expand(2, 16)
+    want, _ = attention.apply_attn(p, base, spec, x, pos)
+    got, _ = attention.apply_attn(
+        pf, dataclasses.replace(base, fuse_qkv=True), spec, x, pos)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_glu_matches_unfused():
+    """tests/test_optimized_configs.py::test_fused_glu_matches_unfused on
+    the port: wgu = stack(wi, wu) on a new axis 1, (D, 2, F)."""
+    from repro_torch.models import mlp
+    base = tconfigs.get_config("llama3.2-1b", smoke=True)
+    p = mlp.init_mlp(torch.Generator().manual_seed(0), base, "cpu")
+    pf = {"wgu": torch.stack([p["wi"], p["wu"]], dim=1), "wo": p["wo"]}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 16, base.d_model)).astype(np.float32))
+    want = mlp.apply_mlp(p, base, x)
+    got = mlp.apply_mlp(pf, dataclasses.replace(base, fuse_glu=True), x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+def test_optimized_smoke_forward_and_decode_match_jax(arch):
+    """The optimized overrides on each smoke config: the param trees
+    (``wqkv``, ``wgu``) and the training forward's, prefill's and a decode
+    step's logits against JAX on bridged params."""
+    from repro.configs.optimized import _OVERRIDES as JAX_OVERRIDES
+    from repro_torch.configs.optimized import _OVERRIDES
+    key = tconfigs.canonical(arch)
+    assert _OVERRIDES[key] == JAX_OVERRIDES[key]
+    cfg_t = dataclasses.replace(tconfigs.get_config(arch, smoke=True),
+                                **_OVERRIDES[key])
+    cfg_j = dataclasses.replace(jconfigs.get_config(arch, smoke=True),
+                                **JAX_OVERRIDES[key])
+    params_j = jmodel.init_params(jax.random.PRNGKey(3), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    mine = bridge.params_to_numpy(tmodel.init_params(
+        torch.Generator().manual_seed(0), cfg_t, "cpu"))
+    assert jax.tree.structure(mine) == jax.tree.structure(
+        jax.tree.map(np.asarray, params_j))
+    slots = params_t["groups"][0]["slots"]
+    assert any("wgu" in s.get("mlp", {}) for s in slots)
+    assert any("wqkv" in s.get("mixer", {}) for s in slots) == \
+        cfg_t.fuse_qkv
+    b, s = 2, 12
+    toks = _tokens(7, b, s + 1, cfg_t.vocab_size)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks[:, :-1]))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks[:, :-1]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    cache_j = jmodel.init_cache(cfg_j, b, s + 4)
+    cache_t = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    pre_j, cache_j = jmodel.prefill(params_j, cfg_j,
+                                    jnp.asarray(toks[:, :-1]), cache_j)
+    pre_t, cache_t = tmodel.prefill(params_t, cfg_t,
+                                    torch.from_numpy(toks[:, :-1]), cache_t)
+    np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j), **LOGIT_TOL)
+    pos = np.full((b,), s, np.int32)
+    dec_j, _ = jmodel.decode_step(params_j, cfg_j, jnp.asarray(toks[:, -1:]),
+                                  cache_j, jnp.asarray(pos))
+    dec_t, _ = tmodel.decode_step(params_t, cfg_t,
+                                  torch.from_numpy(toks[:, -1:]), cache_t,
+                                  torch.from_numpy(pos))
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), **LOGIT_TOL)

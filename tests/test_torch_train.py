@@ -1,8 +1,9 @@
 """The port's training slice against the JAX package on the CPU: the plain
 RMSNorm and flash-attention backward versions against ``jax.vjp`` of the JAX
 oracles, the autograd wiring of ``ops`` (gradcheck), ``forward_loss`` and
-its gradients, AdamW, the train step (single and accumulated) and the
-``Trainer`` (smoke configs, JAX-initialised params moved over by
+its gradients (llama3.2-1b and zamba2-2.7b), remat "full" and "dots",
+AdamW, Adafactor and Lion, the train step (single and accumulated) and
+the ``Trainer`` (smoke configs, JAX-initialised params moved over by
 ``repro_torch.bridge``).  The CUDA kernels themselves are held against the
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import dataclasses
@@ -203,10 +204,10 @@ def test_ops_run_the_autograd_function_only_when_recording():
 # model: forward_loss and its gradients against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg_j = jconfigs.get_config("llama3.2-1b", smoke=True)
-    cfg_t = tconfigs.get_config("llama3.2-1b", smoke=True)
+@pytest.fixture(scope="module", params=["llama3.2-1b", "zamba2-2.7b"])
+def setup(request):
+    cfg_j = jconfigs.get_config(request.param, smoke=True)
+    cfg_t = tconfigs.get_config(request.param, smoke=True)
     params_j = jax.jit(jmodel.init_params, static_argnums=1)(
         jax.random.PRNGKey(0), cfg_j)  # jitted: 3x faster than op by op
     return cfg_j, cfg_t, params_j
@@ -267,18 +268,55 @@ def test_forward_loss_equals_cross_entropy_of_logits(setup):
         loss, tstep.cross_entropy(logits, batch["labels"]), **LOSS_TOL)
 
 
-def test_remat_full_gives_the_gradients_of_none(setup):
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_full_gives_the_gradients_of_none(setup, remat):
+    """Checkpointing changes what the backward recomputes, never the
+    gradients: "full" (recompute every repeat) and "dots" (keep the matmul
+    outputs) give the bits of "none" on the CPU."""
     cfg_j, cfg_t, params_j = setup
     batch = _tbatch(_batch(2, 2, 16, cfg_t.vocab_size))
     grads = [tree_leaves(tstep.make_grad_fn(
-        dataclasses.replace(cfg_t, remat=remat))(_bridged(params_j),
-                                                  batch)[1])
-             for remat in ("none", "full")]
+        dataclasses.replace(cfg_t, remat=r))(_bridged(params_j), batch)[1])
+             for r in ("none", remat)]
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tstep.make_grad_fn(dataclasses.replace(cfg_t, remat="dots"))(
-            _bridged(params_j), batch)
+
+
+def test_unknown_remat_raises(setup):
+    _, cfg_t, params_j = setup
+    with pytest.raises(ValueError, match="remat='some'"):
+        tstep.make_grad_fn(dataclasses.replace(cfg_t, remat="some"))(
+            _bridged(params_j), _tbatch(_batch(2, 2, 8, cfg_t.vocab_size)))
+
+
+def test_remat_dots_recomputes_no_matmul(setup):
+    """Counted by a dispatch mode over the backward alone: "dots" runs the
+    matmuls of "none" (its kept outputs are not recomputed), "full" runs
+    every forward matmul of the checkpointed repeats once more."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    mms = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+    class CountMatmuls(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in mms
+            return func(*args, **(kwargs or {}))
+
+    _, cfg_t, params_j = setup
+    batch = _tbatch(_batch(3, 2, 16, cfg_t.vocab_size))
+    counts = {}
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(cfg_t, remat=remat)
+        params = _bridged(params_j)
+        with torch.enable_grad():
+            loss, _ = tmodel.forward_loss(params, cfg, batch["tokens"],
+                                          batch["labels"])
+            with CountMatmuls() as mode:
+                torch.autograd.grad(loss, tree_leaves(params))
+        counts[remat] = mode.n
+    assert counts["dots"] == counts["none"] < counts["full"], counts
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +376,83 @@ def test_adamw_steps_match_jax(setup):
         np.testing.assert_allclose(a, np.asarray(w), **PARAM_TOL)
 
 
-def test_unported_optimizers_raise():
-    for name in ("adafactor", "lion"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            topt.make_optimizer(name)
+@pytest.mark.parametrize("name", ["adafactor", "lion"])
+def test_optimizer_steps_match_jax(setup, name):
+    """Three steps on fixed gradients (warmup, clipping, weight decay, and
+    Adafactor's factored moments with its update clipping over each whole
+    stacked leaf, or Lion's sign update) from bridged params: params and
+    state as JAX has them."""
+    _, _, params_j = setup
+    rng = np.random.default_rng(8)
+    grads_np = jax.tree.map(
+        lambda p: rng.standard_normal(p.shape).astype(np.float32), params_j)
+    opt_j = jopt.make_optimizer(name, **OPT_KW)
+    opt_t = topt.make_optimizer(name, **OPT_KW)
+    pj, sj = params_j, opt_j.init(params_j)
+    pt = _bridged(params_j)
+    st = opt_t.init(pt)
+    gt = bridge.params_from_numpy(grads_np, "cpu")
+    for _ in range(3):
+        pj, sj, mj = jax.jit(opt_j.apply)(pj, jax.tree.map(jnp.asarray,
+                                                           grads_np), sj)
+        pt, st, mt = opt_t.apply(pt, gt, st)
+    assert int(st["step"]) == 3 and st["step"].dtype == torch.int32
+    np.testing.assert_allclose(float(mt["grad_norm"]),
+                               float(mj["grad_norm"]), rtol=1e-5)
+    mine = bridge.params_to_numpy({"p": pt, "s": st})
+    theirs = jax.tree.map(np.asarray, {"p": pj, "s": sj})
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for a, w in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a, w, **PARAM_TOL)
+
+
+def test_adafactor_state_is_factored():
+    """tests/test_train_serve_ft.py::test_adafactor_state_is_factored, and
+    on the stacked, fused params of the optimized llama config: every leaf
+    of rank >= 2 is factored over its last two axes, the repeat axis kept
+    (``wgu`` (R, D, 2, F): ``vr`` (R, D, 2), ``vc`` (R, D, F)), with the
+    shapes and keys of the JAX state."""
+    from repro.configs.optimized import optimized_config as jopt_config
+    from repro_torch.configs.optimized import _OVERRIDES
+    opt = topt.make_optimizer("adafactor")
+    st = opt.init({"w": torch.zeros(64, 32), "b": torch.zeros(7)})
+    assert st["stats"]["w"]["vr"].shape == (64,)
+    assert st["stats"]["w"]["vc"].shape == (32,)
+    assert st["stats"]["b"]["v"].shape == (7,)
+    cfg = dataclasses.replace(tconfigs.get_config("llama3.2-1b", smoke=True),
+                              **_OVERRIDES["llama3_2_1b"])
+    params = tmodel.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    st = opt.init(params)
+    wgu = params["groups"][0]["slots"][0]["mlp"]["wgu"]
+    r, d, two, f = wgu.shape
+    assert two == 2 and r == cfg.groups[0].repeat
+    stat = st["stats"]["groups"][0]["slots"][0]["mlp"]["wgu"]
+    assert stat["vr"].shape == (r, d, 2) and stat["vc"].shape == (r, d, f)
+    cfg_j = dataclasses.replace(
+        jconfigs.get_config("llama3.2-1b", smoke=True),
+        **{k: getattr(jopt_config("llama3.2-1b"), k)
+           for k in ("fuse_qkv", "fuse_glu", "seq_parallel")})
+    want = jax.eval_shape(
+        jopt.make_optimizer("adafactor").init,
+        jax.eval_shape(lambda k: jmodel.init_params(k, cfg_j),
+                       jax.random.PRNGKey(0)))
+    got = jax.tree.map(lambda t: t.shape, bridge.params_to_numpy(st))
+    assert got == jax.tree.map(lambda t: t.shape, want)
+
+
+@pytest.mark.parametrize("name", ["adafactor", "lion"])
+def test_optimizer_descends_quadratic(name):
+    """tests/test_train_serve_ft.py::test_optimizer_descends_quadratic."""
+    opt = topt.make_optimizer(name, lr=0.1, weight_decay=0.0, warmup=1,
+                              decay_steps=1000)
+    params = {"w": torch.tensor([3.0, -2.0, 5.0], requires_grad=True)}
+    state = opt.init(params)
+    l0 = float(params["w"].detach().square().sum())
+    for _ in range(50):
+        g = torch.autograd.grad(params["w"].square().sum(), params["w"])[0]
+        params, state, _ = opt.apply(params, {"w": g}, state)
+    assert float(params["w"].detach().square().sum()) < 0.2 * l0
 
 
 def test_adamw_descends_quadratic():
@@ -406,23 +517,31 @@ def test_trainer_memorizes_fixed_batch():
     assert hist[-1]["loss"] < hist[0]["loss"] - 0.5  # memorization
 
 
-def test_checkpoint_restart_resumes_identically():
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_checkpoint_restart_resumes_identically(optimizer):
     """tests/test_train_serve_ft.py::
     test_checkpoint_restart_resumes_identically: 3 steps, checkpoint,
-    restore into a fresh Trainer, 3 more equal 6 straight steps."""
+    restore into a fresh Trainer, 3 more equal 6 straight steps, params
+    and optimizer state; the Trainer takes the optimizer named by the
+    config."""
+    cfg = dataclasses.replace(CFG, optimizer=optimizer)
     with tempfile.TemporaryDirectory() as d:
         kw = dict(global_batch=4, seq_len=32, log_every=1000, eval_every=2)
-        a = Trainer(CFG, TrainerConfig(steps=6, **kw), device="cpu")
+        a = Trainer(cfg, TrainerConfig(steps=6, **kw), device="cpu")
+        assert type(a.opt).__name__.lower() == optimizer
         a.train()
-        b1 = Trainer(CFG, TrainerConfig(steps=3, ckpt_every=3, ckpt_dir=d,
+        b1 = Trainer(cfg, TrainerConfig(steps=3, ckpt_every=3, ckpt_dir=d,
                                         **kw), device="cpu")
         b1.train()
-        b2 = Trainer(CFG, TrainerConfig(steps=6, ckpt_dir=d, **kw),
+        b2 = Trainer(cfg, TrainerConfig(steps=6, ckpt_dir=d, **kw),
                      device="cpu")
         assert b2.maybe_restore() and b2.step == 3
         b2.train()
         assert [r["step"] for r in b2.history] == [4, 5, 6]
         assert "eval_loss" in b2.history[0]
+        for x, y in zip(tree_leaves(a.opt_state), tree_leaves(b2.opt_state)):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-6,
+                                       atol=1e-6)
         for x, y in zip(tree_leaves(a.params), tree_leaves(b2.params)):
             np.testing.assert_allclose(x.detach().numpy(),
                                        y.detach().numpy(), rtol=1e-6,
