@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rmsnorm-times [--root DIR]
+    python3 chip_smoke.py --ssd-times [--root DIR]
     python3 chip_smoke.py --serving-runtime [--root DIR]
     python3 chip_smoke.py --parity-sweep
 
 The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
-(``rmsnorm_times``); the third only serves llama3.2-1b's 16 requests
+(``rmsnorm_times``); the third only times DIR's SSD forward and backward
+at zamba2's training and serving shapes, the backward split by kernel
+(``ssd_times``); the fourth only serves llama3.2-1b's 16 requests
 through DIR's engine and prints the runtime's cost a call
 (``serving_runtime``).  Run on two checkouts in turns (parent, change,
-change, parent) in one call, either compares them on one card.  The
-fourth only measures how far zamba2's bf16 gradients move when one op
+change, parent) in one call, any of the three compares them on one card.
+The fifth only measures how far zamba2's bf16 gradients move when one op
 runs its plain version, and how far each route lies from fp32
 (``parity_sweep``).  The first form:
 
@@ -20,7 +23,7 @@ runs its plain version, and how far each route lies from fp32
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (timed), the registers and spills of the main
    instantiations, and the count of HGMMA (tensor-core) instructions in
-   each bf16 flash and SSD kernel's SASS.
+   each bf16 flash and SSD kernel's SASS (the SSD backward's too).
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
    attention at head dims 32, 64, 80 and 128 (fp32 2e-5, bf16 2e-2), the
@@ -111,6 +114,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import re
@@ -378,19 +382,20 @@ def _check_ssd_bwd(rng, dtype, cases, out, key):
     """The SSD backward kernel against ``ref.mamba_chunk_scan_bwd``: each
     case twice (bit-equal), every output within the rel. L2 limit
     (``SSD_BWD_REL_L2_BF16`` in bf16, ``SSD_BWD_FP32_REL_L2`` in fp32).
-    Cases are (b, s, nh, hd, ns, with h0); with a ``key`` the last case is
-    kept for the timing phase."""
+    Cases are (b, s, nh, hd, ns, with h0, with dh_final); with a ``key``
+    the last case is kept for the timing phase."""
     from repro_torch.kernels import mamba_chunk_scan as mcs
     from repro_torch.kernels import ref
     name = str(dtype).removeprefix("torch.")
     limit = (mcs.SSD_BWD_REL_L2_BF16 if dtype == torch.bfloat16
              else SSD_BWD_FP32_REL_L2)
-    for b, s, nh, hd, ns, with_h0 in cases:
+    for b, s, nh, hd, ns, with_h0, with_dhf in cases:
         args = _ssd_inputs(rng, b, s, nh, hd, ns, dtype)
         h0 = _randn(rng, (b, nh, hd, ns), torch.float32) if with_h0 \
             else None
         dy = _randn(rng, (b, s, nh, hd), dtype)
         dhf = _randn(rng, (b, nh, hd, ns), torch.float32)
+        dhf = dhf if with_dhf else None  # drawn either way: same stream
         got = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
         again = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
         torch.cuda.synchronize()
@@ -409,7 +414,7 @@ def _check_ssd_bwd(rng, dtype, cases, out, key):
             err = max(err, float((g.float() - w.float()).abs().max()))
         del got, want
         print(f"mamba_chunk_scan_bwd {name:8s} b={b} s={s} nh={nh} hd={hd} "
-              f"ns={ns} h0={with_h0}: rel L2 "
+              f"ns={ns} h0={with_h0} dh_final={with_dhf}: rel L2 "
               f"{', '.join(f'{n} {r:.3e}' for n, r in rels.items())} "
               f"(limit {limit}), max abs err {err:.3e}, bit-equal twice")
         if key:
@@ -550,9 +555,9 @@ def check_kernels():
         _check_flash(rng, dtype, FLASH_SWEEP, out, None)
         _check_decode(rng, dtype, DECODE_SWEEP, out, None)
         _check_ssd(rng, dtype, SSD_SWEEP, out, None)
-        _check_ssd_bwd(rng, dtype, [(*c, i % 2 == 0)
+        _check_ssd_bwd(rng, dtype, [(*c, i % 2 == 0, i % 3 != 1)
                                     for i, c in enumerate(SSD_SWEEP)]
-                       + [(1, 37, 4, 128, 128, True)], out, None)
+                       + [(1, 37, 4, 128, 128, True, True)], out, None)
         _check_rmsnorm(rng, dtype, RMS_SWEEP, out, None)
         _check_flash_bwd(rng, dtype, FLASH_SWEEP[:5], out, None)
         if not bf16:
@@ -578,14 +583,17 @@ def check_kernels():
                                                  64, 64))
         # the zamba2 training step's SSD, forward (no h0) and backward:
         # zamba2's widths with and without h0, a ragged S, the training
-        # shape last (kept for the timing phase)
+        # shape as the training step calls it (no h0, no dh_final: its
+        # h_final is unused), and with a dh_final last (kept for the
+        # timing phase)
         zshape = (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 64)
         _check_ssd(rng, dtype, [zshape], out, "ssd:" + ZTRAIN_KEY,
                    keep=zshape, with_h0=False, split=False)
-        _check_ssd_bwd(rng, dtype, [(1, 512, 80, 64, 64, True),
-                                    (1, 512, 80, 64, 64, False),
-                                    (2, 300, 80, 64, 64, True),
-                                    (*zshape, False)], out,
+        _check_ssd_bwd(rng, dtype, [(1, 512, 80, 64, 64, True, True),
+                                    (1, 512, 80, 64, 64, False, True),
+                                    (2, 300, 80, 64, 64, True, True),
+                                    (*zshape, False, False),
+                                    (*zshape, False, True)], out,
                        "ssd_bwd:" + ZTRAIN_KEY)
         for path, call, n, ds in RMS_CALLS:
             _check_rmsnorm(rng, dtype, [(n, d) for d in ds], out,
@@ -1236,6 +1244,64 @@ def rmsnorm_times(root):
         "zero_8_floats_ms": time_ms(z.zero_, flush),
         f"copy_{n}x{d}_bf16_ms": time_ms(lambda: out.copy_(x), flush)},
         "root": str(root), "card": card}), flush=True)
+
+
+SSD_TIMED = [  # (call, (b, s, nh, hd, ns), with h0): zamba2's SSD calls
+    ("training step", (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 64), False),
+    ("prefill", (1, max(PREFILL_LENS), 80, 64, 64), True)]
+
+
+def ssd_times(root):
+    """The SSD forward and backward kernels of the checkout at ``root``
+    (already on ``sys.path``), timed (cold L2, ``time_ms``) at zamba2's
+    training and serving shapes in bf16; the backward also split by kernel
+    (``torch.profiler``, device time a call).  Prints one JSON line a
+    timing, each with the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    if not Path(mcs.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {mcs.__file__}, not {root}'s")
+    build.load(mcs.NAME)
+    build.load(mcs.BWD_NAME)
+    card = _card()
+    print(card)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(0)
+
+    def by_kernel(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.self_device_time_total / 1e3 / n
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+
+    def row(kernel, call, shape, fn, **extra):
+        print(json.dumps({
+            "kernel": kernel, "call": call, "shape": list(shape),
+            "dtype": "bfloat16", "ms": time_ms(fn, flush), **extra,
+            "root": str(root), "card": card}), flush=True)
+
+    with torch.no_grad():
+        for call, shape, with_h0 in SSD_TIMED:
+            b, s, nh, hd, ns = shape
+            args = _ssd_inputs(rng, *shape, torch.bfloat16)
+            h0 = _randn(rng, (b, nh, hd, ns), torch.float32) if with_h0 \
+                else None
+            dy = _randn(rng, (b, s, nh, hd), torch.bfloat16)
+            dhf = _randn(rng, (b, nh, hd, ns), torch.float32)
+            row("mamba_chunk_scan", call, shape,
+                lambda: mcs.mamba_chunk_scan(*args, h0=h0))
+            bwd = (lambda: mcs.mamba_chunk_scan_bwd(  # noqa: E731
+                *args, dy, dhf, h0=h0))
+            row("mamba_chunk_scan_bwd", call, shape, bwd,
+                by_kernel=by_kernel(bwd))
 
 
 def serving_runtime(root):
@@ -2149,13 +2215,15 @@ def run_coordinator(card):
 
 def hgmma_counts(build):
     """The number of HGMMA (wgmma) instructions in each bf16 flash and SSD
-    kernel's SASS, from ``cuobjdump -sass`` of the built libraries; None if
-    the toolkit has no cuobjdump."""
+    kernel's SASS (the SSD backward's state and chunk kernels too), from
+    ``cuobjdump -sass`` of the built libraries; None if the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     counts = {}
-    for lib in ("flash_attention", "flash_attention_bwd", "mamba_chunk_scan"):
+    for lib in ("flash_attention", "flash_attention_bwd", "mamba_chunk_scan",
+                "mamba_chunk_scan_bwd"):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -2165,8 +2233,8 @@ def hgmma_counts(build):
                 # flash: <head dim>; SSD: <padded HD, padded NS>
                 m = (re.search(r"(flash_(?:fwd|bwd)\w*?_sm90)ILi(\d+)E",
                                line)
-                     or re.search(r"(ssd_kernel_sm90)ILi(\d+)ELi(\d+)E",
-                                  line))
+                     or re.search(r"(ssd_kernel_sm90|ssd_bwd_states|"
+                                  r"ssd_bwd_chunk)ILi(\d+)ELi(\d+)E", line))
                 fn = m and f"{m[1]}<{','.join(m.groups()[1:])}>"
                 if fn:
                     counts[fn] = 0
@@ -2182,16 +2250,22 @@ def main(argv=()) -> int:
     ap.add_argument("--serving-runtime", action="store_true",
                     help="only serve llama3.2-1b through the engine and "
                          "print the runtime's cost a call (serving_runtime)")
+    ap.add_argument("--ssd-times", action="store_true",
+                    help="only time the SSD forward and backward kernels "
+                         "(ssd_times)")
     ap.add_argument("--parity-sweep", action="store_true",
                     help="only measure zamba2's bf16 gradients against "
                          "each plain version and fp32 (parity_sweep)")
     ap.add_argument("--root", type=Path, default=ROOT,
-                    help="checkout whose src/repro_torch --rmsnorm-times or "
-                         "--serving-runtime runs (default: this one)")
+                    help="checkout whose src/repro_torch --rmsnorm-times, "
+                         "--ssd-times or --serving-runtime runs (default: "
+                         "this one)")
     args = ap.parse_args(argv)
     root = args.root.resolve()
-    if root != ROOT and not (args.rmsnorm_times or args.serving_runtime):
-        ap.error("--root is for --rmsnorm-times and --serving-runtime")
+    if root != ROOT and not (args.rmsnorm_times or args.ssd_times
+                             or args.serving_runtime):
+        ap.error("--root is for --rmsnorm-times, --ssd-times and "
+                 "--serving-runtime")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2202,6 +2276,9 @@ def main(argv=()) -> int:
     sys.path.insert(0, str(root / "src"))
     if args.rmsnorm_times:
         rmsnorm_times(root)
+        return 0
+    if args.ssd_times:
+        ssd_times(root)
         return 0
     if args.serving_runtime:
         serving_runtime(root)
@@ -2236,7 +2313,10 @@ def main(argv=()) -> int:
         ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
         ("ssd_kernel_sm90", "Li64ELi64E"), ("ssd_kernel_sm90", "Li64ELi128E"),
         ("ssd_kernel_sm90", "Li128ELi64E"),
-        ("ssd_kernel_sm90", "Li128ELi128E"), ("ssd_bwd_kernel", "")] + sorted({
+        ("ssd_kernel_sm90", "Li128ELi128E"),
+        ("ssd_bwd_states", "Li64ELi64E"), ("ssd_bwd_scan", ""),
+        ("ssd_bwd_chunk", "Li64ELi64E"), ("ssd_bwd_chunk", "Li128ELi128E"),
+        ("ssd_bwd_reduce", "13__nv_bfloat16")] + sorted({
             (f"{kind}_kernel", "Li{}ELi{}E".format(*rn.launch_shape(
                 n, d, torch.bfloat16, backward=kind == "rms_bwd")[:2]))
             for _, call, n, ds in RMS_CALLS for d in ds
@@ -2248,7 +2328,8 @@ def main(argv=()) -> int:
                 entry = line.split("'")[1]
                 what = next((f"{k} {t}" for k, t in shown
                              if k in entry and t in entry), None) \
-                    if "13__nv_bfloat16" in entry else None
+                    if "13__nv_bfloat16" in entry or "sm90b" in entry \
+                    else None
             elif what and ("Used" in line or "spill" in line):
                 print(f"  {name} bf16 {what}: "
                       f"{line.split(':', 1)[-1].strip()}")

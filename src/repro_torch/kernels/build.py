@@ -60,8 +60,8 @@ SIGNATURES = {
         # x, dt, a, b, c, d, h0 (or null), dy, dh_final (or null), dx, ddt,
         # db, dc, da, dd, dh0 (or null), then fp32 scratch: states,
         # db and dc partials, da and dd partials; dtype, B, S, NH, HD, NS,
-        # Q, stream
-        "mamba_chunk_scan_bwd": [_P] * 21 + [_I] * 7 + [_P]},
+        # Q, G (heads a group), K (chunks a segment), stream
+        "mamba_chunk_scan_bwd": [_P] * 21 + [_I] * 9 + [_P]},
     "rmsnorm": {
         # x, scale, y, rstd (or null), dtype, rows, d, eps, zero_centered,
         # then the launch shape (kernels/rmsnorm.py Plan: vec, npt, tpr,

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the bf16 attention and SSD kernels:
 //  * warpgroup matrix multiply-accumulate (wgmma.mma_async m64nNk16, bf16
-//    operands, fp32 accumulators): A from shared memory at N = 64 (ss), A
+//    operands, fp32 accumulators): A from shared memory at N = 64 and 128
+//    (ss, B read K-major or, with the template flag TB = 1, MN-major), A
 //    from registers at N = 32, 64, 80 and 128 (rs), and at N = 64 also
-//    with B read K-major (rs_kb, the SSD's); its fence, commit and wait;
+//    with B read K-major (rs_kb, the SSD's); its fence, commit and wait,
+//    and the proxy fence after generic stores into a wgmma operand;
 //  * the shared-memory matrix descriptor of the one tile layout below;
 //  * the map from an accumulator register to its (row, column) of the
 //    64-row tile, and the conversion of an fp32 accumulator into the bf16
@@ -71,6 +73,11 @@ constexpr uint64_t MN_MAJOR_STEP = (32 * C) >> 4;
 
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// after this thread's st.shared into a tile that a wgmma reads (the async
+// proxy), before the barrier that publishes it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ void commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -153,8 +160,9 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
 }
 
 // Warpgroup products m64nNk16, D (+)= A B, bf16 in, fp32 accumulators,
-// for the N the kernels use: ss reads A (64 x 16, K-major) and B (K-major)
-// through descriptors, at N = 64 (the scores, a 64-row tile wide); rs
+// for the N the kernels use: ss reads A (64 x 16, K-major) and B (K-major,
+// or MN-major with TB = 1) through descriptors, at N = 64 (the scores, a
+// 64-row tile wide) and 128 (the SSD backward's state products); rs
 // takes A from four registers of each thread (acc_to_a) and reads B
 // MN-major (its transpose flag set), at N = the head dim.  accumulate = 0
 // overwrites D.
@@ -183,6 +191,8 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
+  // TB = 1 reads B MN-major (its transpose flag set)
+  template <int TB = 0>
   __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int accumulate) {
     asm volatile(
@@ -192,7 +202,7 @@ struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -201,7 +211,7 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
   }
   __device__ __forceinline__ static void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
@@ -282,6 +292,39 @@ struct Wgmma<80> {
 
 template <>
 struct Wgmma<128> {
+  template <int TB = 0>
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+  }
   __device__ __forceinline__ static void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t b, int accumulate) {

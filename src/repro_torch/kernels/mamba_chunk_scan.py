@@ -100,7 +100,7 @@ def _check(kernel, x, dt, a, b, c, d, h0):
 
 
 def bwd_smem_bytes(q: int, hd: int, ns: int) -> int:
-    """Shared memory of the backward kernel at chunk length ``q``
+    """Shared memory of the fp32 backward kernel at chunk length ``q``
     (``smem_floats`` in csrc/mamba_chunk_scan_bwd.cu): x and dy rows, B and
     C rows, the state and dH, three (q, q) tiles, nine q-vectors and ten
     scalars, in fp32 with rows padded by one."""
@@ -109,9 +109,35 @@ def bwd_smem_bytes(q: int, hd: int, ns: int) -> int:
 
 
 def bwd_chunk(hd: int, ns: int) -> int:
-    """The backward kernel's chunk length: 64 where its shared memory fits
-    a CTA, else 32 (HD = NS = 128)."""
+    """The fp32 backward kernel's chunk length: 64 where its shared memory
+    fits a CTA, else 32 (HD = NS = 128)."""
     return 64 if bwd_smem_bytes(64, hd, ns) <= MAX_SMEM else 32
+
+
+BWD_Q = 64       # the bf16 backward's chunk length
+BWD_GROUP = 8    # heads a CTA of the bf16 backward, where NS <= 64
+BWD_SEGMENT = 8  # chunks a segment of the bf16 backward's state walks
+
+
+def bwd_sm90_smem_bytes(hd: int, ns: int, g: int) -> int:
+    """Shared memory of the bf16 backward's chunk kernel with ``g`` heads a
+    CTA (``ChunkSmem::bytes`` in csrc/mamba_chunk_scan_bwd.cu): x, dy, B
+    and C tiles and the state's three terms in bf16, padded to 64 or 128;
+    in fp32 C B^T (rows padded by four), seven 64-vectors, eight scalars,
+    the next state's two parts where they are staged (HD, NS <= 64), and
+    the group's dt and two decays a head."""
+    hdp, nsp = (64 if n <= 64 else 128 for n in (hd, ns))
+    q, ht = BWD_Q, hdp * nsp
+    return (2 * (2 * q * hdp + 2 * q * nsp + 3 * ht)
+            + 4 * (q * (q + 4) + 7 * q + 8
+                   + (2 * ht if ht <= 64 * 64 else 0) + g * (q + 2)))
+
+
+def bwd_group(nh: int, hd: int, ns: int) -> int:
+    """Heads a CTA of the bf16 backward: ``BWD_GROUP`` (at most ``nh``)
+    where NS <= 64, whose db and dc the kernel sums over the group in
+    registers; one head at a larger NS."""
+    return min(BWD_GROUP, nh) if ns <= 64 else 1
 
 
 def mamba_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -123,15 +149,19 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     zeros) -> (dx, ddt, da, db, dc, dd, dh0): dx, db and dc in x.dtype,
     ddt (B,S,NH), da and dd (NH,) and dh0 (B,NH,HD,NS; None when ``h0`` is
     None) in fp32, as :func:`repro_torch.kernels.ref.mamba_chunk_scan_bwd`
-    computes them.  Takes what the forward takes.  Two launches, the
-    kernel and its fixed-order reduction over heads and batch rows, into
-    fp32 scratch: the chunk states (B,NH,ceil(S/Q),HD,NS), and the
-    per-head partials of db and dc (2,B,NH,S,NS) and of da and dd
-    (2,B,NH)."""
+    computes them.  Takes what the forward takes.  One call into the
+    library, into fp32 scratch.  bf16 (the chunk-parallel tensor-core
+    kernels): the states of the chunks and of the segments of K =
+    ``BWD_SEGMENT`` chunks (2,B,NH,NC+NSEG,HD,NS) with NC = ceil(S/64) and
+    NSEG = ceil(NC/K), db and dc summed over each group of G =
+    :func:`bwd_group` heads (2,B,ceil(NH/G),S,NS), and da and dd per chunk
+    (2,B,NC,NH).  fp32 (the CUDA-core kernel): the states
+    (B,NH,ceil(S/Q),HD,NS) at Q = :func:`bwd_chunk`, and per-head
+    partials (2,B,NH,S,NS) and (2,B,NH)."""
     build.check_no_grad(BWD_NAME, x, dt, a, b, c, d, dy, dh_final, h0)
     bs, s, nh, hd, ns = _check(BWD_NAME, x, dt, a, b, c, d, h0)
-    build.check_operand(BWD_NAME, "dy", dy, 4, x.dtype,
-                        aligned=x.dtype == torch.bfloat16)
+    bf16 = x.dtype == torch.bfloat16
+    build.check_operand(BWD_NAME, "dy", dy, 4, x.dtype, aligned=bf16)
     if dy.shape != x.shape:
         raise ValueError(f"{BWD_NAME}: dy {tuple(dy.shape)}, expected "
                          f"{tuple(x.shape)}")
@@ -141,16 +171,23 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         if dh_final.shape != (bs, nh, hd, ns):
             raise ValueError(f"{BWD_NAME}: dh_final {tuple(dh_final.shape)},"
                              f" expected {(bs, nh, hd, ns)}")
-    q = bwd_chunk(hd, ns)
     f32 = dict(dtype=torch.float32, device=x.device)
+    if bf16:
+        q, g, k = BWD_Q, bwd_group(nh, hd, ns), BWD_SEGMENT
+        nc, ng = -(-s // q), -(-nh // g)
+        states = torch.empty((2, bs, nh, nc - (-nc // k), hd, ns), **f32)
+        dbc = torch.empty((2, bs, ng, s, ns), **f32)
+        dad = torch.empty((2, bs, nc, nh), **f32)
+    else:
+        q, g, k = bwd_chunk(hd, ns), 1, 1
+        states = torch.empty((bs, nh, -(-s // q), hd, ns), **f32)
+        dbc = torch.empty((2, bs, nh, s, ns), **f32)
+        dad = torch.empty((2, bs, nh), **f32)
     dx = torch.empty_like(x)
     ddt = torch.empty((bs, s, nh), **f32)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     da, dd = torch.empty((nh,), **f32), torch.empty((nh,), **f32)
     dh0 = None if h0 is None else torch.empty((bs, nh, hd, ns), **f32)
-    states = torch.empty((bs, nh, -(-s // q), hd, ns), **f32)
-    dbc = torch.empty((2, bs, nh, s, ns), **f32)
-    dad = torch.empty((2, bs, nh), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.entry(BWD_NAME)(
@@ -161,7 +198,7 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         dbc[0].data_ptr(), dbc[1].data_ptr(), dad[0].data_ptr(),
         dad[1].data_ptr(),
         build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")],
-        bs, s, nh, hd, ns, q, stream)
+        bs, s, nh, hd, ns, q, g, k, stream)
     build.launch_check(BWD_NAME, err)
     build.count_launch(mamba_chunk_scan_bwd)
     return dx, ddt, da, db, dc, dd, dh0

@@ -233,6 +233,44 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, b, s, nh, hd, ns,
         assert rel <= limit, (name, rel)
 
 
+@pytest.mark.parametrize("b,s,nh,hd,ns,with_h0,with_dhf", [
+    (1, 300, 80, 64, 64, True, True),    # zamba2's widths: 5 chunks, one
+                                         # segment shorter than BWD_SEGMENT
+    (2, 1000, 80, 64, 64, True, True),   # 16 chunks, the last ragged
+    (1, 700, 12, 64, 64, True, True),    # 11 chunks in segments of 8 + 3,
+                                         # 12 heads in groups of 8 + 4
+    (1, 700, 12, 64, 128, True, True),   # NS 128: one head a group
+    (1, 50, 8, 64, 64, True, True),      # one ragged chunk
+    (2, 1000, 80, 64, 64, False, False),  # as the training step calls it
+    (1, 700, 12, 64, 64, False, False),
+])
+def test_ssd_bwd_kernel_segments_and_groups(cuda, b, s, nh, hd, ns, with_h0,
+                                            with_dhf):
+    """The bf16 backward at shapes whose chunks do not fill the last
+    segment (``BWD_SEGMENT``) or whose heads do not fill the last group
+    (``bwd_group``), with and without h0 and dh_final: every output
+    within SSD_BWD_REL_L2_BF16 of ref.mamba_chunk_scan_bwd, two calls
+    bit-equal."""
+    rng = np.random.default_rng(s + nh + ns)
+    args = _ssd_inputs(rng, b, s, nh, hd, ns, torch.bfloat16, cuda)
+    h0 = _randn(rng, (b, nh, hd, ns), torch.float32, cuda) if with_h0 \
+        else None
+    dy = _randn(rng, (b, s, nh, hd), torch.bfloat16, cuda)
+    dhf = _randn(rng, (b, nh, hd, ns), torch.float32, cuda) if with_dhf \
+        else None
+    got = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+    again = mcs.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+    torch.cuda.synchronize()
+    want = ref.mamba_chunk_scan_bwd(*args, dy, dhf, h0=h0)
+    assert (got[-1] is None) == (h0 is None)
+    for name, g, g2, w in zip(SSD_BWD_NAMES, got, again, want):
+        if w is None:
+            continue
+        assert torch.equal(g, g2), name
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= mcs.SSD_BWD_REL_L2_BF16, (name, rel)
+
+
 def test_zamba2_gradients_on_card_match_cpu(cuda):
     """A small zamba2-shaped model (head_dim 80, remat "full"), fp32:
     forward_loss and every gradient through the kernels (the SSD forward

@@ -772,12 +772,193 @@ def test_ssd_bwd_chunked_form_matches_plain(q, s):
         torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10, msg=name)
 
 
+def _ssd_bwd_segmented(x, dt, a, b, c, d, dy, dhf, h0, q, group, segment,
+                       op=None):
+    """Plain-torch emulation of the bf16 backward kernels of
+    csrc/mamba_chunk_scan_bwd.cu: chunks of ``q`` rows in segments of
+    ``segment`` chunks; each segment's two walks from zero (P and T, Q
+    and U), the scans over segments, each chunk's H_in and dH from its
+    segment's boundary state; then the chunk-local pass with S = C B^T
+    once a chunk, db and dc summed over each group of ``group`` heads in
+    head order, then over groups.  ``op`` maps an fp32 operand of a
+    product (wt, pdt, pd: W^T, Pd^T, Pd; dh, hin: the states; decx, efdy:
+    the walks' dec x and exp(F) dy) to its rounding; the rest is exact in
+    the inputs' dtype."""
+    op = op or {}
+    r = lambda k, t: op.get(k, lambda u: u)(t)  # noqa: E731
+    bs, s, nh, hd = x.shape
+    ns = b.shape[-1]
+    pad = -s % q
+    p = lambda t: torch.cat([t, t.new_zeros(  # noqa: E731
+        (t.shape[0], pad, *t.shape[2:]))], 1)
+    x, dt, b, c, dy = map(p, (x, dt, b, c, dy))
+    nc = x.shape[1] // q
+    xc, dyc = (t.reshape(bs, nc, q, nh, hd) for t in (x, dy))
+    dtc = dt.reshape(bs, nc, q, nh)
+    bc, cc = (t.reshape(bs, nc, q, ns) for t in (b, c))
+    f = torch.cumsum(dtc * a, 2)
+    fq = f[:, :, -1:]
+    dec, ef, efq = dtc * torch.exp(fq - f), torch.exp(f), torch.exp(fq[:, :, 0])
+    hloc = torch.einsum("zcthd,zctn->zchdn", r("decx", dec[..., None] * xc),
+                        bc)
+    gloc = torch.einsum("zcthd,zctn->zchdn", r("efdy", ef[..., None] * dyc),
+                        cc)
+    zero = x.new_zeros(bs, nh, hd, ns)
+    hin, dh = [None] * nc, [None] * nc
+    segs = [range(k0, min(nc, k0 + segment)) for k0 in range(0, nc, segment)]
+    tot_h, tot_g = [], []
+    for seg in segs:  # the walks inside each segment, from zero
+        run = zero
+        for ci in seg:
+            hin[ci] = run
+            run = efq[:, ci, :, None, None] * run + hloc[:, ci]
+        tot_h.append(run)
+        run = zero
+        for ci in reversed(seg):
+            dh[ci] = run
+            run = efq[:, ci, :, None, None] * run + gloc[:, ci]
+        tot_g.append(run)
+    dseg = [torch.exp(fq[:, list(seg), 0].sum(1)) for seg in segs]
+    cur = zero if h0 is None else h0
+    for k, seg in enumerate(segs):  # the scans over segments
+        for ci in seg:
+            pre = torch.exp(fq[:, seg[0]:ci, 0].sum(1))
+            hin[ci] = pre[..., None, None] * cur + hin[ci]
+        cur = dseg[k][..., None, None] * cur + tot_h[k]
+    cur = zero if dhf is None else dhf
+    for k in reversed(range(len(segs))):
+        for ci in segs[k]:
+            post = torch.exp(fq[:, ci + 1:segs[k][-1] + 1, 0].sum(1))
+            dh[ci] = post[..., None, None] * cur + dh[ci]
+        cur = dseg[k][..., None, None] * cur + tot_g[k]
+    hin, dh = torch.stack(hin, 1), torch.stack(dh, 1)
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool))[:, :, None]
+    e = torch.where(tri, torch.exp(f[:, :, :, None] - f[:, :, None]), 0.0)
+    sm = torch.einsum("zcsn,zcun->zcsu", cc, bc)           # once a chunk
+    pm = torch.einsum("zcshd,zcuhd->zcsuh", dyc, xc)
+    dtu = dtc[:, :, None]
+    w, pd, tm = sm[..., None] * e * dtu, pm * e * dtu, sm[..., None] * e * pm
+    bdh = torch.einsum("zcun,zchdn->zcuhd", bc, r("dh", dh))
+    qv = (xc * bdh).sum(-1)
+    dx = (dec[..., None] * bdh + d[:, None] * dyc
+          + torch.einsum("zcsuh,zcshd->zcuhd", r("wt", w), dyc))
+    dbh = (dec[..., None] * torch.einsum("zcthd,zchdn->zcthn", xc,
+                                         r("dh", dh))
+           + torch.einsum("zcsuh,zcsn->zcuhn", r("pdt", pd), cc))
+    dyh = torch.einsum("zcshd,zchdn->zcshn", dyc, r("hin", hin))
+    dch = (ef[..., None] * dyh
+           + torch.einsum("zcsuh,zcun->zcshn", r("pd", pd), bc))
+
+    def hsum(t):  # heads in order within a group, then groups in order
+        out = 0
+        for g0 in range(0, nh, group):
+            acc = t[:, :, :, g0]
+            for h in range(g0 + 1, min(nh, g0 + group)):
+                acc = acc + t[:, :, :, h]
+            out = out + acc
+        return out
+    col = tm.sum(2)
+    df = (ef * (dyh * cc[:, :, :, None]).sum(-1) + (tm * dtu).sum(3)
+          - dtc * col - dec * qv)
+    df[:, :, -1] += efq * (dh * hin).sum((-2, -1)) + (dec * qv).sum(2)
+    dl = torch.flip(torch.cumsum(torch.flip(df, [2]), 2), [2])
+    ddt = a * dl + col + torch.exp(fq - f) * qv
+    un = lambda t: t.reshape(bs, nc * q, *t.shape[3:])[:, :s]  # noqa: E731
+    return (un(dx), un(ddt), (dtc * dl).sum(2).sum((0, 1)), un(hsum(dbh)),
+            un(hsum(dch)), (dyc * xc).sum((2, 4)).sum((0, 1)),
+            None if h0 is None else cur)
+
+
+@pytest.mark.parametrize("q,s,group,segment", [
+    (64, 150, 3, 8),    # ragged S, one segment longer than the sequence
+    (64, 300, 2, 2),    # 5 chunks: segments of 2, 2, 1
+    (32, 300, 1, 3),    # 10 chunks: segments of 3, 3, 3, 1
+    (16, 100, 3, 1),    # one chunk a segment: the plain chunk scan
+    (16, 64, 2, 4),     # whole segments
+])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_ssd_bwd_segmented_form_matches_plain(q, s, group, segment,
+                                              with_h0):
+    """The bf16 backward kernels' decomposition (segments of chunks,
+    boundary states, C B^T shared across heads, db and dc summed in head
+    groups), in float64, against the plain reverse recurrence
+    (ref.mamba_chunk_scan_bwd) to 1e-10."""
+    gen = torch.Generator().manual_seed(s + q + segment)
+    bs, nh, hd, ns = 2, 3, 4, 3
+    rn = lambda *sh: torch.randn(sh, dtype=torch.float64,  # noqa: E731
+                                 generator=gen)
+    x, b, c, d, dy = rn(bs, s, nh, hd), rn(bs, s, ns), rn(bs, s, ns), \
+        rn(nh), rn(bs, s, nh, hd)
+    dt = torch.rand(bs, s, nh, dtype=torch.float64, generator=gen) * 0.3 \
+        + 0.01
+    a = -torch.rand(nh, dtype=torch.float64, generator=gen) - 0.1
+    h0 = rn(bs, nh, hd, ns) if with_h0 else None
+    dhf = rn(bs, nh, hd, ns)
+    got = _ssd_bwd_segmented(x, dt, a, b, c, d, dy, dhf, h0, q, group,
+                             segment)
+    want = ref.mamba_chunk_scan_bwd(x, dt, a, b, c, d, dy, dhf, h0=h0)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd", "dh0"), got,
+                          want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10, msg=name)
+
+
+SSD_BWD_OPERANDS = ("wt", "pdt", "pd", "dh", "hin", "decx", "efdy")
+
+
+@pytest.mark.parametrize("one_term", [None, *SSD_BWD_OPERANDS])
+def test_ssd_bwd_precision_model(one_term):
+    """The bf16 backward kernels' roundings, emulated in plain torch at
+    (1, 512, 4, 64, 64) with h0 and dh_final on bf16 inputs, against the
+    plain backward: with every fp32 operand of a product as three bf16
+    terms, every output (dx, db, dc rounded to bf16) within
+    SSD_BWD_REL_L2_BF16; with any one of them rounded to one bf16 term,
+    some output lands past it, which is why the kernels split them."""
+    from repro_torch.kernels import mamba_chunk_scan as mcs
+    b, s, nh, hd, ns = 1, 512, 4, 64, 64
+    rng = np.random.default_rng(17)
+    f32 = np.float32
+    x, bm, cm, dy = (rng.standard_normal(sh).astype(f32) for sh in
+                     ((b, s, nh, hd), (b, s, ns), (b, s, ns), (b, s, nh, hd)))
+    dt = (np.abs(rng.standard_normal((b, s, nh))) * 0.1 + 0.01).astype(f32)
+    a = -(np.abs(rng.standard_normal(nh)) + 0.1).astype(f32)
+    d = rng.standard_normal(nh).astype(f32)
+    h0, dhf = (rng.standard_normal((b, nh, hd, ns)).astype(f32)
+               for _ in range(2))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(x=x, dt=dt, a=a, b=bm, c=cm, d=d, dy=dy).items()}
+    for k in ("x", "b", "c", "dy"):
+        t[k] = _bf16(t[k])
+    h0, dhf = torch.from_numpy(h0), torch.from_numpy(dhf)
+    bf = {k: t[k].bfloat16() for k in ("x", "b", "c", "dy")}
+    want = ref.mamba_chunk_scan_bwd(bf["x"], t["dt"], t["a"], bf["b"],
+                                    bf["c"], t["d"], bf["dy"], dhf, h0=h0)
+    rounds = {k: _terms3 for k in SSD_BWD_OPERANDS}
+    if one_term is not None:
+        rounds[one_term] = _bf16
+    got = _ssd_bwd_segmented(t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"],
+                             t["dy"], dhf, h0, mcs.BWD_Q,
+                             mcs.bwd_group(nh, hd, ns), mcs.BWD_SEGMENT,
+                             rounds)
+    rel = {}
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd", "dh0"), got,
+                          want):
+        g = g.bfloat16() if name in ("dx", "db", "dc") else g
+        rel[name] = float((g.float() - w.float()).norm() / w.float().norm())
+    worst = max(rel.values())
+    assert (worst <= mcs.SSD_BWD_REL_L2_BF16) == (one_term is None), rel
+
+
 def test_ssd_bwd_wrapper_passes_what_the_signature_declares():
     """The backward wrapper's call of its C entry point, with the library
     and the CUDA checks mocked out: one argument per declared argtype, in
     the order of csrc/mamba_chunk_scan_bwd.cu; null h0, dh_final and dh0
-    where none is given; the chunk length of ``bwd_chunk`` and fp32
-    scratch of the documented shapes; one launch counted.  Through
+    where none is given; in fp32 the chunk length of ``bwd_chunk``, one
+    head a group and one chunk a segment; in bf16 64-row chunks,
+    ``bwd_group`` heads a group, ``BWD_SEGMENT`` chunks a segment and fp32
+    scratch of the documented shapes; one launch counted a call.  Through
     ``ops`` a meta tensor dispatches as a CUDA one: the forward kernel
     runs under autograd and the backward kernel in the backward."""
     from unittest import mock
@@ -805,7 +986,7 @@ def test_ssd_bwd_wrapper_passes_what_the_signature_declares():
         assert name == mcs.BWD_NAME
         assert len(args) == len(build.SIGNATURES[name][name])
         assert args[6] is None and args[8] is None and args[15] is None
-        assert args[21:] == (0, bs, s, nh, hd, ns, 32, 7)
+        assert args[21:] == (0, bs, s, nh, hd, ns, 32, 1, 1, 7)
         assert out[-1] is None and out[0].shape == x.shape
         assert out[1].shape == dt.shape and out[3].shape == bm.shape
         calls.clear()
@@ -814,7 +995,33 @@ def test_ssd_bwd_wrapper_passes_what_the_signature_declares():
         assert [n for n, _ in calls] == [mcs.NAME]
         torch.autograd.grad(y, xg, torch.zeros_like(y))
         assert [n for n, _ in calls] == [mcs.NAME, mcs.BWD_NAME]
-    assert mcs.mamba_chunk_scan_bwd.launches - n0 == 2
+        # bf16, zamba2's widths, 10 chunks: 2 segments, 10 groups of 8
+        calls.clear()
+        bs, s, nh, hd, ns = 2, 600, 80, 64, 64
+        nc, nseg, ng = 10, 2, 10
+        xb = torch.zeros(bs, s, nh, hd, dtype=torch.bfloat16, device="meta")
+        bb = torch.zeros(bs, s, ns, dtype=torch.bfloat16, device="meta")
+        dt = torch.zeros(bs, s, nh, device="meta")
+        a = torch.zeros(nh, device="meta")
+        h0 = torch.zeros(bs, nh, hd, ns, device="meta")
+        real, scratch = torch.empty, []
+
+        def empty(*shape, **kw):
+            t = real(*shape, **kw)
+            scratch.append(tuple(t.shape))
+            return t
+        with mock.patch.object(torch, "empty", empty):
+            out = mcs.mamba_chunk_scan_bwd(xb, dt, a, bb, bb, a, xb, h0, h0)
+        ((name, args),) = calls
+        assert len(args) == len(build.SIGNATURES[name][name])
+        assert args[15] is not None and out[-1].shape == h0.shape
+        assert args[21:] == (1, bs, s, nh, hd, ns, mcs.BWD_Q,
+                             mcs.bwd_group(nh, hd, ns), mcs.BWD_SEGMENT, 7)
+        assert (mcs.BWD_Q, mcs.bwd_group(nh, hd, ns), mcs.BWD_SEGMENT) == (
+            64, 8, 8)
+        assert {(2, bs, nh, nc + nseg, hd, ns), (2, bs, ng, s, ns),
+                (2, bs, nc, nh)} <= set(scratch)
+    assert mcs.mamba_chunk_scan_bwd.launches - n0 == 3
 
 
 def test_ops_flash_attention_gives_the_kernels_contiguous_operands():

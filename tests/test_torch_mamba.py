@@ -312,3 +312,16 @@ def test_ssd_bwd_chunk_fits_shared_memory(hd, ns, q):
     at one of them."""
     assert mcs.bwd_chunk(hd, ns) == q
     assert mcs.bwd_smem_bytes(q, hd, ns) <= mcs.MAX_SMEM
+
+
+@pytest.mark.parametrize("nh,hd,ns,g", [(80, 64, 64, 8), (3, 64, 64, 3),
+                                        (80, 128, 64, 8), (80, 64, 128, 1),
+                                        (80, 128, 128, 1), (2, 8, 8, 2)])
+def test_ssd_bwd_head_group_fits_shared_memory(nh, hd, ns, g):
+    """The bf16 backward's head group: 8 heads (at most NH) where NS <=
+    64, whose db and dc the kernel sums in registers; one head at a larger
+    NS; its chunk kernel's shared memory fits a CTA on the H100 at every
+    shape the forward takes, and two CTAs an SM at zamba2's."""
+    assert mcs.bwd_group(nh, hd, ns) == g
+    assert mcs.bwd_sm90_smem_bytes(hd, ns, g) <= mcs.MAX_SMEM
+    assert 2 * (mcs.bwd_sm90_smem_bytes(64, 64, 8) + 1024) <= 228 * 1024
