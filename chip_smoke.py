@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ssd-times [--root DIR]
     python3 chip_smoke.py --serving-runtime [--root DIR]
     python3 chip_smoke.py --parity-sweep
+    python3 chip_smoke.py --logits-gap
 
 The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
@@ -17,16 +18,24 @@ through DIR's engine and prints the runtime's cost a call
 change, parent) in one call, any of the three compares them on one card.
 The fifth only measures how far zamba2's bf16 gradients move when one op
 runs its plain version, and how far each route lies from fp32
-(``parity_sweep``).  The first form:
+(``parity_sweep``).  The sixth only measures gemma2-27b's kernel-vs-plain
+logits gap at full width by depth (4 to 46 layers), with its softcaps on
+and off, and at full depth with one op at a time on its plain version
+(``logits_gap``).  The first form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (timed), the registers and spills of the main
-   instantiations, and the count of HGMMA (tensor-core) instructions in
-   each bf16 flash and SSD kernel's SASS (the SSD backward's too).
+   instantiations (the flash forward at head dim 256 in bf16 and fp32,
+   decode at (256, G) and (128, 7)), and the count of HGMMA (tensor-core)
+   instructions in each bf16 flash and SSD kernel's SASS (the SSD
+   backward's too).
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
-   attention at head dims 32, 64, 80 and 128 (fp32 2e-5, bf16 2e-2), the
+   attention at head dims 32, 64, 80, 128 and 256 and at G = 7 (fp32 2e-5,
+   bf16 2e-2; the dense family's prefills and decode steps as its layers
+   call them, gemma2's window of 4096 at a 4608-token prefill and over
+   8192 cached positions with lengths below, at and past it), the
    Mamba-2 SSD scan with ragged S and a split at h0 (fp32 2e-4, bf16 2e-2,
    and in bf16 y and h_final within rel. L2 ``SSD_REL_L2_BF16``), RMSNorm
    forward (fp32 2e-5, bf16 2e-2; the same y bits without rstd) and
@@ -36,7 +45,9 @@ runs its plain version, and how far each route lies from fp32
    backward (fp32 1e-4, bf16 5e-2).  Decode and SSD run twice and must be
    bit-equal; decode must be free of NaN, also with lengths at and around
    a split boundary and a window that empties whole splits.  Both flash
-   wrappers must refuse a query row with no live key.  The SSD backward
+   wrappers must refuse a query row with no live key; the flash backward
+   must refuse head dim 256, and decode head dim 256 with G = 16 (neither
+   is built).  The SSD backward
    against its plain version (the exact reverse recurrence) on the
    sweep, at zamba2's widths with and without h0, a ragged S and the
    training shape (4, 2048, 80, 64, 64): twice bit-equal, every output
@@ -52,8 +63,16 @@ runs its plain version, and how far each route lies from fp32
    * llama3.2-1b (flash and decode attention, head dim 64);
    * zamba2-2.7b (45 mamba2 layers through the SSD kernel, 9 repeats of a
      weight-shared attention slot through flash and decode attention at
-     head dim 80).
-   Every RMSNorm of both runs through the rmsnorm kernel.  For each: the
+     head dim 80);
+   * gemma2-27b at its published width and depth (46 layers, post-norms,
+     a 4096 window on every other layer, softcaps 50 and 30, scale 1/12),
+     then its long-context check: 4 layers at full width, a 4608-token
+     prompt into an 8192-position cache and one decode step, kernel path
+     against plain path;
+   * gemma-7b (28 layers, head dim 256);
+   * deepseek-coder-33b at its published width, 16 of its 62 layers
+     (56/8 heads, G = 7).
+   Every RMSNorm of every run goes through the rmsnorm kernel.  For each: the
    widths are asserted; every request finishes; every prefill and decode
    step went through its kernels (launch counters set to 0 just before the
    engine run and read just after); one runtime epoch a prefill or decode
@@ -95,14 +114,17 @@ runs its plain version, and how far each route lies from fp32
    rel) of one full-batch ``make_train_step`` step; each step's wall time,
    makespan and ``server_busy`` beside its microbatch functions' walls.
 4. Numbers: per kernel and slice, its time beside the plain version's, the
-   PyTorch library call's (where one computes the same function) and the
-   card's bound; the decode rows also give the host's n_split, and the
+   PyTorch library call's (where one computes the same function: SDPA,
+   or for a softcapped row, which SDPA cannot take, a compiled
+   ``flex_attention`` with the tanh cap as its score_mod, its error
+   against the plain version given beside it) and the card's bound; the decode rows also give the host's n_split, and the
    rmsnorm rows the call that launches them (a decode step, a prefill, a
    training step or a coordinator's microbatch), its norms per call at
    that width, its launches at that
    call and width as the wrapper counted them by (rows, d) in phase 3
    (asserted equal to the norms per call times the calls) and the launch
-   shape (``kernels/rmsnorm.py::launch_shape``).
+   shape (``kernels/rmsnorm.py::launch_shape``).  Then the wall seconds of
+   each phase, and of each slice of phase 3.
 
 Any failed check raises, so the script exits non-zero.  It prints no
 result, and fails, without a CUDA card or outside a checkout of the repo.
@@ -152,6 +174,13 @@ FLASH_SWEEP = [  # (b, s, h, kv, hd, causal, window, cap): tests/test_kernels.py
     (1, 384, 6, 2, 64, True, 256, 30.0),
     (2, 200, 4, 2, 80, True, 64, 30.0),     # head dim 80 (zamba2)
 ]
+# head dim 256 (gemma-7b) without and with a window and softcap, and G = 7
+# (deepseek-coder-33b's 56/8 heads); the rest of the sweep at hd 256 is
+# tests/test_torch_cuda.py's
+FLASH_SWEEP_DENSE = [(*FLASH_SWEEP[0][:4], 256, *FLASH_SWEEP[0][5:]),
+                     (*FLASH_SWEEP[4][:4], 256, *FLASH_SWEEP[4][5:]),
+                     (1, 300, 14, 2, 128, True, None, None),
+                     (2, 200, 7, 1, 256, True, 64, 50.0)]
 PREFILL_LENS = (32, 64, 128, 256, 512, 200)
 DECODE_SWEEP = [  # (b, t, h, kv, hd, window, cap): tests/test_kernels.py
     (2, 256, 8, 2, 64, None, None),
@@ -159,6 +188,15 @@ DECODE_SWEEP = [  # (b, t, h, kv, hd, window, cap): tests/test_kernels.py
     (3, 256, 16, 8, 64, None, 30.0),
     (2, 384, 8, 1, 32, 64, None),
     (3, 300, 8, 2, 80, 100, 30.0),          # head dim 80 (zamba2)
+]
+# head dim 256 at G 2 and 8 (the most accumulators a lane, 64), and G 7;
+# every other (256, G) and (hd, 7) pair is
+# tests/test_torch_cuda.py::test_decode_kernel_every_dense_pair's
+DECODE_SWEEP_DENSE = [
+    (3, 300, 8, 4, 256, 100, 30.0),
+    (2, 520, 16, 2, 256, 64, None),
+    (3, 300, 7, 1, 128, None, 50.0),
+    (2, 384, 56, 8, 128, 64, None),
 ]
 SSD_SWEEP = [  # (b, s, nh, hd, ns): tests/test_kernels.py, plus ragged S
     (2, 128, 3, 32, 16),
@@ -168,6 +206,12 @@ SSD_SWEEP = [  # (b, s, nh, hd, ns): tests/test_kernels.py, plus ragged S
 ]
 N_REQUESTS, MAX_BATCH, MAX_LEN, NEW_TOKENS = 16, 8, 1024, 32
 FLOOD_REQUESTS = 200     # serving_memory's requests after its first wave
+# gemma2-27b's long-context check: one prompt of LONG_PROMPT tokens (past
+# the local layers' 4096 window) into a cache of LONG_CACHE positions,
+# then one decode step, at full width and LONG_LAYERS layers (2 of the 23
+# local/global repeats)
+LONG_ARCH, LONG_KEY = "gemma2-27b", "gemma2-27b-long"
+LONG_PROMPT, LONG_CACHE, LONG_LAYERS = 4608, 8192, 4
 TRAIN_ARCH, TRAIN_KEY = "llama3.2-1b", "llama3.2-1b-train"
 ZTRAIN_ARCH, ZTRAIN_KEY = "zamba2-2.7b", "zamba2-2.7b-train"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
@@ -206,7 +250,14 @@ RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
              (TRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ, (2048,)),
              (ZTRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ,
               (2560, 5120)),
-             (COORD_KEY, "microbatch", TRAIN_SEQ, (2048,))]
+             (COORD_KEY, "microbatch", TRAIN_SEQ, (2048,)),
+             ("gemma2-27b", "decode step", MAX_BATCH, (4608,)),
+             ("gemma2-27b", "prefill", 512, (4608,)),
+             ("gemma-7b", "decode step", MAX_BATCH, (3072,)),
+             ("gemma-7b", "prefill", 512, (3072,)),
+             ("deepseek-coder-33b", "decode step", MAX_BATCH, (7168,)),
+             ("deepseek-coder-33b", "prefill", 512, (7168,)),
+             (LONG_KEY, "prefill", LONG_PROMPT, (4608,))]
 # rows of the serving forward's sweep in --rmsnorm-times: a decode step,
 # prompts of 32-512 tokens, and on to the training step's, across the
 # forward's change of plan (kernels/rmsnorm.py FEW_ELEMS: past 409, 819
@@ -215,12 +266,29 @@ RMS_TIMED_ROWS = (MAX_BATCH, 32, 64, 128, 192, 256, 384, 512, 768, 1024,
                   2048, 4096, TRAIN_BATCH * TRAIN_SEQ)
 
 # (arch, published widths: layers, d, heads, kv heads, head dim, d_ff,
-#  vocab, dtype, mamba (d_state, d_conv, expand, head_dim, chunk) or None)
+#  vocab, dtype, mamba (d_state, d_conv, expand, head_dim, chunk) or None;
+#  layers run, where the depth is cut, else None)
 SLICES = [
-    ("llama3.2-1b", (16, 2048, 32, 8, 64, 8192, 128256, "bfloat16", None)),
+    ("llama3.2-1b", (16, 2048, 32, 8, 64, 8192, 128256, "bfloat16", None),
+     None),
     ("zamba2-2.7b", (54, 2560, 32, 32, 80, 10240, 32000, "bfloat16",
-                     (64, 4, 2, 64, 128))),
+                     (64, 4, 2, 64, 128)), None),
+    ("gemma2-27b", (46, 4608, 32, 16, 128, 36864, 256000, "bfloat16", None),
+     None),
+    ("gemma-7b", (28, 3072, 16, 16, 256, 24576, 256000, "bfloat16", None),
+     None),
+    # 16 of 62 layers, for chip time (full depth: 33.3e9 params, 66.7 GB)
+    ("deepseek-coder-33b", (62, 7168, 56, 8, 128, 19200, 32256, "bfloat16",
+                            None), 16),
 ]
+# each dense arch's attention as its layers call the kernels: (heads, kv
+# heads, head dim, window, softcap, scale); gemma2's local layers' window
+# never masks a prompt of at most 512 tokens or a 1024-position cache
+DENSE_ATTN = {
+    "gemma2-27b": (32, 16, 128, 4096, 50.0, 1 / 12),
+    "gemma-7b": (16, 16, 256, None, None, 1 / 16),
+    "deepseek-coder-33b": (56, 8, 128, None, None, 128 ** -0.5),
+}
 
 
 def _randn(rng, shape, dtype):
@@ -257,43 +325,48 @@ def _ssd_inputs(rng, b, s, nh, hd, ns, dtype):
             _randn(rng, (nh,), torch.float32))
 
 
-def _check_flash(rng, dtype, cases, out, key):
+def _check_flash(rng, dtype, cases, out, key, keep=max(PREFILL_LENS)):
+    """Each case (b, s, h, kv, hd, causal, window, cap[, scale]; the scale
+    1 / sqrt(hd) unless given) within ``tol`` of the plain version; with a
+    ``key``, the case of S = ``keep`` is kept for the timing phase."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     tol = TOL[str(dtype).removeprefix("torch.")]
-    for b, s, h, kv, hd, causal, window, cap in cases:
+    for b, s, h, kv, hd, causal, window, cap, *scale in cases:
         q = _randn(rng, (b, s, h, hd), dtype)
         k = _randn(rng, (b, s, kv, hd), dtype)
         v = _randn(rng, (b, s, kv, hd), dtype)
         kw = dict(causal=causal, window=window, softcap=cap,
-                  scale=1.0 / np.sqrt(hd))
+                  scale=scale[0] if scale else 1.0 / np.sqrt(hd))
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = _check_close(f"flash_attention {dtype} {(b, s, h, kv, hd)}",
                            got, ref.flash_attention(q, k, v, **kw), tol)
         print(f"flash_attention {str(dtype)[6:]:8s} b={b} s={s} h={h} "
               f"kv={kv} hd={hd} causal={causal} window={window} "
-              f"cap={cap}: max abs err {err:.3e} (tol {tol})")
-        if key and s == max(PREFILL_LENS):
+              f"cap={cap} scale={kw['scale']:.5g}: max abs err {err:.3e} "
+              f"(tol {tol})")
+        if key and s == keep:
             out[key] = (q, k, v, kw, err)
 
 
 def _check_decode(rng, dtype, cases, out, key, lengths=None):
-    """Each case twice: bit-equal, free of NaN, and within ``tol`` of the
-    plain version.  ``lengths`` (for every case) replaces the lengths drawn
-    from 1 .. t-1."""
+    """Each case (b, t, h, kv, hd, window, cap[, scale]) twice: bit-equal,
+    free of NaN, and within ``tol`` of the plain version.  ``lengths`` (for
+    every case) replaces the lengths drawn from 1 .. t-1."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     tol = TOL[str(dtype).removeprefix("torch.")]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, t, h, kv, hd, window, cap in cases:
+    for b, t, h, kv, hd, window, cap, *scale in cases:
         q = _randn(rng, (b, 1, h, hd), dtype)
         k = _randn(rng, (b, t, kv, hd), dtype)
         v = _randn(rng, (b, t, kv, hd), dtype)
         lens = (rng.integers(1, t, size=(b,)) if lengths is None
                 else np.asarray(lengths))
         kw = dict(lengths=torch.from_numpy(lens.astype(np.int32)).cuda(),
-                  window=window, softcap=cap, scale=1.0 / np.sqrt(hd))
+                  window=window, softcap=cap,
+                  scale=scale[0] if scale else 1.0 / np.sqrt(hd))
         got = da.decode_attention(q, k, v, **kw)
         again = da.decode_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -451,6 +524,38 @@ def _check_flash_refuses_empty_rows():
               f"key)")
 
 
+def _check_dense_refusals():
+    """What the dense family's kernels are not built for: the flash
+    backward at head_dim 256 (gemma-7b does not train yet) and decode at
+    head_dim 256 with G = 16.  Each wrapper must raise a ValueError that
+    names it, and launch nothing."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 64, 4, 256), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device="cuda")
+    o, lse = fa.flash_attention_fwd(q, k, k)
+    q1 = torch.zeros((1, 1, 32, 256), dtype=torch.bfloat16, device="cuda")
+    lengths = torch.ones(1, dtype=torch.int32, device="cuda")
+    calls = (("flash_attention_bwd at head_dim 256", fa.flash_attention_bwd,
+              "head_dim 256", lambda: fa.flash_attention_bwd(q, k, k, o, lse,
+                                                             q)),
+             ("decode_attention at head_dim 256, G = 16", da.decode_attention,
+              "group size 16", lambda: da.decode_attention(
+                  q1, k, k, lengths=lengths)))
+    for what, wrapper, says, call in calls:
+        n = wrapper.launches
+        try:
+            call()
+        except ValueError as e:
+            refused = says in str(e)
+            msg = str(e)
+        else:
+            refused, msg = False, ""
+        if not refused or wrapper.launches != n:
+            raise AssertionError(f"{what} was not refused")
+        print(f"{what}: refused ({msg})")
+
+
 def _check_rmsnorm(rng, dtype, shapes, out, key,
                    rows=("rms_fwd", "rms_bwd")):
     """Forward and backward against the plain versions; the forward
@@ -553,7 +658,9 @@ def check_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         _check_flash(rng, dtype, FLASH_SWEEP, out, None)
+        _check_flash(rng, dtype, FLASH_SWEEP_DENSE, out, None)
         _check_decode(rng, dtype, DECODE_SWEEP, out, None)
+        _check_decode(rng, dtype, DECODE_SWEEP_DENSE, out, None)
         _check_ssd(rng, dtype, SSD_SWEEP, out, None)
         _check_ssd_bwd(rng, dtype, [(*c, i % 2 == 0, i % 3 != 1)
                                     for i, c in enumerate(SSD_SWEEP)]
@@ -578,6 +685,29 @@ def check_kernels():
                       + [(8, MAX_LEN, 32, 32, 80, 300, None)], out, None,
                       lengths=[1, 255, 256, 257, 512, 700, 1000, MAX_LEN])
         _check_flash_refuses_empty_rows()
+        # the dense family's serving shapes, as its layers call the kernels
+        for arch, (h, kv, hd, window, cap, scale) in DENSE_ATTN.items():
+            _check_flash(rng, dtype, [(1, s, h, kv, hd, True, window, cap,
+                                       scale) for s in PREFILL_LENS],
+                         out, "flash:" + arch)
+            _check_decode(rng, dtype, [(MAX_BATCH, MAX_LEN, h, kv, hd, window,
+                                        cap, scale)], out, "decode:" + arch)
+        # gemma2's local window at work: the long-context check's prefill
+        # (the only shape where the window masks), decode over LONG_CACHE
+        # positions with lengths below, at and past the window, and the
+        # long-context check's decode step
+        h, kv, hd, window, cap, scale = DENSE_ATTN[LONG_ARCH]
+        _check_flash(rng, dtype, [(1, LONG_PROMPT, h, kv, hd, True, window,
+                                   cap, scale)], out, "flash:" + LONG_KEY,
+                     keep=LONG_PROMPT)
+        _check_decode(rng, dtype, [(MAX_BATCH, LONG_CACHE, h, kv, hd, window,
+                                    cap, scale)], out, None,
+                      lengths=[1, 2000, window - 1, window, window + 1,
+                               LONG_PROMPT + 1, 6000, LONG_CACHE])
+        _check_decode(rng, dtype, [(1, LONG_CACHE, h, kv, hd, window, cap,
+                                    scale)], out, "decode:" + LONG_KEY,
+                      lengths=[LONG_PROMPT + 1])
+        _check_dense_refusals()
         _check_ssd(rng, dtype, [(1, s, 80, 64, 64) for s in PREFILL_LENS],
                    out, "ssd:zamba2-2.7b", keep=(1, max(PREFILL_LENS), 80,
                                                  64, 64))
@@ -648,8 +778,14 @@ def greedy_reference(cfg, params, prompt):
     return out
 
 
-def compare_plain_path(cfg, params):
-    """Logits of one prefill + one decode step, kernels vs plain path."""
+PLAIN_OPS = ("flash_attention", "decode_attention", "mamba_chunk_scan",
+             "rmsnorm")
+
+
+def compare_plain_path(cfg, params, plain_ops=PLAIN_OPS, check=True):
+    """Logits of one prefill + one decode step, kernels vs plain path (the
+    ops of ``plain_ops`` swapped for their plain versions); with
+    ``check``, each rel. L2 error must be within LOGITS_REL_TOL."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model as model_lib
     rng = np.random.default_rng(1)
@@ -665,10 +801,9 @@ def compare_plain_path(cfg, params):
         return pre.float(), dec.float()
 
     kernel = run()
-    with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
-            mock.patch.object(ops, "decode_attention", ref.decode_attention), \
-            mock.patch.object(ops, "mamba_chunk_scan", ref.mamba_chunk_scan), \
-            mock.patch.object(ops, "rmsnorm", ref.rmsnorm):
+    with contextlib.ExitStack() as stack:
+        for op in plain_ops:
+            stack.enter_context(mock.patch.object(ops, op, getattr(ref, op)))
         plain = run()
     res = {}
     for name, a, w in zip(("prefill", "decode"), kernel, plain):
@@ -676,7 +811,7 @@ def compare_plain_path(cfg, params):
         agree = float((a.argmax(-1) == w.argmax(-1)).float().mean())
         res[name] = {"max_abs_err": float((a - w).abs().max()),
                      "rel_l2_err": rel, "token_agreement": agree}
-        if not rel <= LOGITS_REL_TOL:
+        if check and not rel <= LOGITS_REL_TOL:
             raise AssertionError(f"{name} logits, kernel vs plain path: "
                                  f"rel L2 err {rel} > {LOGITS_REL_TOL}")
     return res
@@ -713,10 +848,11 @@ def _reset_counters():
 
 def _norm_widths(cfg):
     """RMSNorms per token pass by width: at d one before each mixer and
-    each MLP and the final norm; at the mamba2 inner width (expand x d) the
-    gated norm inside each mamba2 mixer."""
+    each MLP, one after each where the layer has post-norms (gemma2), and
+    the final norm; at the mamba2 inner width (expand x d) the gated norm
+    inside each mamba2 mixer."""
     count = {cfg.d_model: 1 + sum(((s.kind != "none") + (s.mlp != "none"))
-                                  * g.repeat
+                                  * (1 + s.post_norms) * g.repeat
                                   for g in cfg.groups for s in g.pattern)}
     gated = _n_layers(cfg, "mamba2")
     if gated:
@@ -947,13 +1083,51 @@ def time_ms(fn, flush, iters=25, warmup=3):
     return float(np.median(times))
 
 
+def _flex_attention(qt, kt, vt, kw, lengths=None, compiled=True):
+    """The library call of a row with a tanh softcap (gemma2's layers),
+    which SDPA cannot take: one ``flex_attention`` call (compiled, as its
+    documentation runs it) on the (B, H, S, hd) layout, with the softcap as
+    its score_mod and the causal + window mask (a prefill) or the length +
+    window mask (decode, ``lengths`` given) as its block mask.  The block
+    mask is built here, outside the timed call.  A baseline only: the
+    port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    cap, window = kw["softcap"], kw["window"] or 0
+    b, _, s, _ = qt.shape
+    t = kt.shape[2]
+
+    def score_mod(score, b_, h_, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    if lengths is None:
+        def mask_mod(b_, h_, q_idx, kv_idx):
+            m = kv_idx <= q_idx
+            return m & (q_idx - kv_idx < window) if window else m
+        mask = create_block_mask(mask_mod, None, None, s, t,
+                                 device=qt.device)
+    else:
+        def mask_mod(b_, h_, q_idx, kv_idx):
+            n = lengths[b_]
+            m = kv_idx < n
+            return m & (kv_idx >= n - window) if window else m
+        mask = create_block_mask(mask_mod, b, None, s, t, device=qt.device)
+    fn = (torch.compile(flex_attention, dynamic=False) if compiled
+          else flex_attention)
+    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                      scale=kw["scale"], enable_gqa=True)
+
+
 def _flash_row(q, k, v, kw, err):
+    """Operations: 4 hd FLOPs a live (query, key) pair, causal with
+    q_offset 0 and S == T, each row's window (where set) counted."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = s * (s + 1) // 2                # causal, q_offset 0, S == T
+    w = min(kw["window"] or s, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
     return dict(
         name="flash_attention", shape=[b, s, h, kv, hd], err=err,
         flops=4 * hd * pairs * b * h,
@@ -962,8 +1136,11 @@ def _flash_row(q, k, v, kw, err):
         replaces="src/repro/kernels/flash_attention.py:114",
         kernel=lambda: fa.flash_attention(q, k, v, **kw),
         plain=lambda: ref.flash_attention(q, k, v, **kw),
-        library=lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True))
+        library=_flex_attention(qt, kt, vt, kw) if kw["softcap"] else (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=kw["scale"],
+                enable_gqa=True)),
+        library_call="flex_attention" if kw["softcap"] else "sdpa")
 
 
 def _decode_row(q, k, v, kw, err, n_split):
@@ -972,7 +1149,8 @@ def _decode_row(q, k, v, kw, err, n_split):
     b, _, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     lengths = kw["lengths"]
-    live = int(lengths.sum())               # cache rows the step must read
+    # cache rows the step must read: the last ``window`` of each sequence
+    live = int(lengths.clamp(max=kw["window"] or t).sum())
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = (torch.arange(t, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
@@ -986,8 +1164,12 @@ def _decode_row(q, k, v, kw, err, n_split):
         replaces="src/repro/kernels/decode_attention.py:108",
         kernel=lambda: da.decode_attention(q, k, v, **kw),
         plain=lambda: ref.decode_attention(q, k, v, **kw),
-        library=lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True))
+        library=_flex_attention(qt, kt, vt, kw, lengths)
+        if kw["softcap"] else (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True)),
+        library_call="flex_attention" if kw["softcap"] else "sdpa")
 
 
 def _ssd_row(args, h0, err):
@@ -1167,6 +1349,10 @@ def kernel_numbers(inputs, launches, rms_calls, card):
                            warmup=min(3, r.get("plain_iters", 25)))
         library_ms = (None if r["library"] is None
                       else time_ms(r["library"], flush))
+        if "library_call" in r:  # the library's attention, (B, H, S, hd)
+            extra["library_max_abs_err"] = float(
+                (r["library"]().transpose(1, 2).float()
+                 - r["plain"]().float()).abs().max())
         t_ops, t_bytes = r["flops"] / PEAK_FLOPS, r["nbytes"] / PEAK_BYTES
         out.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
@@ -1178,7 +1364,7 @@ def kernel_numbers(inputs, launches, rms_calls, card):
             "dtype": "bfloat16", "flops": r["flops"], "bytes": r["nbytes"],
             "card": card, **extra,
             **{k: r[k] for k in ("n_split", "note", "plan", "with_rstd",
-                                 "plain_iters") if k in r}})
+                                 "plain_iters", "library_call") if k in r}})
     return out
 
 
@@ -1419,8 +1605,15 @@ def profile_slice(cfg, params, card):
     return out
 
 
-def published_config(arch, widths):
-    """The port's config of ``arch``, asserted at its published widths."""
+def _widths(arch):
+    """The published widths of ``arch`` in ``SLICES``."""
+    return next(w for a, w, _ in SLICES if a == arch)
+
+
+def published_config(arch, widths, layers=None):
+    """The port's config of ``arch``, asserted at its published widths; with
+    ``layers``, its depth cut to that many layers (whole repeats of its one
+    group's pattern), every width kept."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     mc = cfg.mamba
@@ -1433,16 +1626,29 @@ def published_config(arch, widths):
     print(f"{arch} at its published width: layers {got[0]}, d {got[1]}, "
           f"heads {got[2]}/{got[3]}, head_dim {got[4]}, d_ff {got[5]}, "
           f"vocab {got[6]}, {got[7]}, mamba {got[8]}")
+    if layers is not None:
+        (group,) = cfg.groups
+        reps, rest = divmod(layers, len(group.pattern))
+        if rest or not 0 < reps <= group.repeat:
+            raise AssertionError(f"{arch}: cannot cut {cfg.num_layers} "
+                                 f"layers to {layers}")
+        cfg = dataclasses.replace(cfg, groups=(
+            dataclasses.replace(group, repeat=reps),))
+        print(f"{arch}: depth cut from {got[0]} to {cfg.num_layers} layers "
+              f"({reps} of {group.repeat} repeats of its "
+              f"{len(group.pattern)}-layer pattern), every width as "
+              f"published")
     return cfg
 
 
-def run_slice(arch, widths, card):
-    """Phase 3 for one slice; returns its engine-run launch counts, and its
-    rmsnorm launches by call and width ("rmsnorm_fwd:<call>:<d>": (norms
-    per call, launches))."""
+def run_slice(arch, widths, layers, card):
+    """Phase 3 for one slice (its depth cut to ``layers`` where that is not
+    None); returns its engine-run launch counts, and its rmsnorm launches
+    by call and width ("rmsnorm_fwd:<call>:<d>": (norms per call,
+    launches))."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_map
-    cfg = published_config(arch, widths)
+    cfg = published_config(arch, widths, layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         params = model_lib.init_params(gen, cfg, device="cuda")
@@ -1467,7 +1673,8 @@ def run_slice(arch, widths, card):
           f"greedy reference")
     memory = serving_memory(cfg, params, prompts)
     print(f"{arch} device memory flat across {memory['requests']} requests "
-          f"({memory['prefills']} prefills, {memory['decode_steps']} decode "
+          f"(a first wave of {MAX_BATCH}, then a flood of {FLOOD_REQUESTS}; "
+          f"{memory['prefills']} prefills, {memory['decode_steps']} decode "
           f"steps, {memory['tasks']} tasks in the pool's graph): "
           f"{memory['live_bytes_after']} live tensor bytes")
     print(f"{arch} launches over the engine run:", json.dumps(launches))
@@ -1488,6 +1695,119 @@ def run_slice(arch, widths, card):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rms_calls
+
+
+def long_context_check():
+    """gemma2-27b at full width and LONG_LAYERS layers (2 of its 23
+    local/global repeats, so both kinds run): one LONG_PROMPT-token prompt
+    prefilled into a cache of LONG_CACHE positions, then one decode step
+    at position LONG_PROMPT, where the local layers' 4096 window leaves
+    out the prompt's first tokens.  Through the kernels (launch counts
+    exact, with every counter set to 0 just before and read just after:
+    one flash and one decode a layer, the norms of a pass at the prompt's
+    rows and at 1 row) and through the plain path, whose logits must agree
+    within LOGITS_REL_TOL.  At full depth the plain path's (1, 32, 4608,
+    4608) fp32 scores would not fit beside the 54 GB of weights.  Returns
+    the launch counts and the rmsnorm launches by call and width."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as model_lib
+    cfg = published_config(LONG_ARCH, _widths(LONG_ARCH), LONG_LAYERS)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT + 1)).astype(np.int32)).cuda()
+    pos = torch.full((1,), LONG_PROMPT, dtype=torch.int32, device="cuda")
+
+    def run():
+        cache = model_lib.init_cache(cfg, 1, LONG_CACHE, device="cuda")
+        pre, cache = model_lib.prefill(params, cfg, toks[:, :LONG_PROMPT],
+                                       cache)
+        dec, _ = model_lib.decode_step(params, cfg, toks[:, LONG_PROMPT:],
+                                       cache, pos)
+        return pre.float(), dec.float()
+
+    with torch.inference_mode():
+        params = model_lib.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        _reset_counters()
+        kernel = run()
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in _counters().items()}
+        rms_shapes = dict(_counters()["rmsnorm_fwd"].shapes)
+        with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
+                mock.patch.object(ops, "decode_attention",
+                                  ref.decode_attention), \
+                mock.patch.object(ops, "rmsnorm", ref.rmsnorm):
+            plain = run()
+    n_attn, n_norm = _n_layers(cfg, "attn"), _n_norms(cfg)
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=n_attn, decode_attention=n_attn,
+                rmsnorm_fwd=2 * n_norm)
+    want_shapes = {(LONG_PROMPT, cfg.d_model): n_norm,
+                   (1, cfg.d_model): n_norm}
+    if launches != want or rms_shapes != want_shapes:
+        raise AssertionError(f"{LONG_KEY}: launches {launches}, rmsnorm "
+                             f"{rms_shapes}; expected {want}, {want_shapes}")
+    res = {}
+    for name, a, w in zip(("prefill", "decode"), kernel, plain):
+        rel = _rel_l2(a, w)
+        res[name] = {"rel_l2_err": rel, "max_abs_err": float(
+            (a - w).abs().max()), "finite": bool(torch.isfinite(a).all())}
+        if not (res[name]["finite"] and rel <= LOGITS_REL_TOL):
+            raise AssertionError(f"{LONG_KEY} {name} logits, kernel vs "
+                                 f"plain path: {res[name]}")
+    print(f"{LONG_KEY}: prompt {LONG_PROMPT} tokens, cache {LONG_CACHE} "
+          f"positions, {cfg.num_layers} layers (window "
+          f"{DENSE_ATTN[LONG_ARCH][3]} on the local ones); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; kernel "
+          f"vs plain path logits:", json.dumps(res))
+    del params, plain, kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {f"rmsnorm_fwd:prefill:{cfg.d_model}": (n_norm, n_norm)}
+
+
+GAP_DEPTHS = (4, 12, 24, 46)  # gemma2-27b layers in --logits-gap
+
+
+def logits_gap(card):
+    """Where gemma2-27b's kernel-vs-plain logits gap comes from
+    (``--logits-gap``): ``compare_plain_path`` at full width on the first
+    GAP_DEPTHS layers of one seed-0 model, with both softcaps (attention
+    50, final 30) as published and with both off; then at full depth with
+    one op at a time swapped for its plain version."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_map
+    widths = _widths(LONG_ARCH)
+    full = published_config(LONG_ARCH, widths)
+    (group,) = full.groups
+    with torch.inference_mode():
+        params = model_lib.init_params(
+            torch.Generator(device="cuda").manual_seed(0), full,
+            device="cuda")
+        rows = []
+        for layers in GAP_DEPTHS:
+            reps = layers // len(group.pattern)
+            cfg = dataclasses.replace(full, groups=(
+                dataclasses.replace(group, repeat=reps),))
+            cut = dict(params, groups=[tree_map(lambda x: x[:reps],
+                                                params["groups"][0])])
+            for caps in (True, False):
+                c = cfg if caps else dataclasses.replace(
+                    cfg, attn_softcap=0.0, final_softcap=0.0)
+                res = compare_plain_path(c, cut, check=False)
+                rows.append({"layers": layers, "softcaps": caps,
+                             "plain_ops": "all", **{
+                                 k: v["rel_l2_err"] for k, v in res.items()}})
+                print(json.dumps({"logits_gap": rows[-1]}))
+        for op in ("flash_attention", "decode_attention", "rmsnorm"):
+            res = compare_plain_path(full, params, plain_ops=(op,),
+                                     check=False)
+            rows.append({"layers": full.num_layers, "softcaps": True,
+                         "plain_ops": op, **{
+                             k: v["rel_l2_err"] for k, v in res.items()}})
+            print(json.dumps({"logits_gap": rows[-1]}))
+    print(card)
+    print(json.dumps({"logits_gap_rows": rows, "card": card}))
 
 
 def _params(cfg, as_cfg=None):
@@ -1516,7 +1836,7 @@ def parity_sweep(card):
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_paths
     build.build_all()
-    cfg = published_config(ZTRAIN_ARCH, dict(SLICES)[ZTRAIN_ARCH])
+    cfg = published_config(ZTRAIN_ARCH, _widths(ZTRAIN_ARCH))
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ + 1)).astype(
@@ -1764,7 +2084,7 @@ def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.optimizer import make_optimizer
-    cfg = published_config(arch, dict(SLICES)[arch])
+    cfg = published_config(arch, _widths(arch))
     if cfg.remat != "full":
         raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}")
     parity_cfg = dataclasses.replace(cfg, dtype=PARITY_DTYPE[arch])
@@ -1845,7 +2165,7 @@ def run_optimized(card, unfused):
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.optimizer import make_optimizer
-    base = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    base = published_config(TRAIN_ARCH, _widths(TRAIN_ARCH))
     cfg = optimized_config(TRAIN_ARCH)
     if not (cfg.fuse_qkv and cfg.fuse_glu) or cfg.remat != "full":
         raise AssertionError(f"optimized {cfg.name}: {cfg}")
@@ -1911,7 +2231,7 @@ def run_remat(card):
     from repro_torch.models.common import tree_paths
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import make_grad_fn
-    base = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    base = published_config(TRAIN_ARCH, _widths(TRAIN_ARCH))
     batch = None
     modes, full_grads, cmp = {}, None, None
     torch.use_deterministic_algorithms(True)
@@ -1970,7 +2290,7 @@ def run_optimizers(card, adamw):
     step time beside AdamW's (``adamw``, the training slice's stats)."""
     from repro_torch.models.common import tree_map
     from repro_torch.train.optimizer import make_optimizer
-    cfg = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    cfg = published_config(TRAIN_ARCH, _widths(TRAIN_ARCH))
     out = {"adamw": {"state_bytes": 8 * adamw["n_params"] + 4,
                      "step_ms": adamw["step_ms_median_2_to_8"],
                      "peak_memory_bytes": adamw["peak_memory_bytes"]}}
@@ -2077,7 +2397,7 @@ def run_coordinator(card):
     from repro_torch.models.common import tree_leaves, tree_map, tree_paths
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import make_train_step
-    cfg = published_config(TRAIN_ARCH, dict(SLICES)[TRAIN_ARCH])
+    cfg = published_config(TRAIN_ARCH, _widths(TRAIN_ARCH))
     batch = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
     torch.use_deterministic_algorithms(True)
     walls, fn_walls, steps, live = [], [], [], []
@@ -2256,6 +2576,9 @@ def main(argv=()) -> int:
     ap.add_argument("--parity-sweep", action="store_true",
                     help="only measure zamba2's bf16 gradients against "
                          "each plain version and fp32 (parity_sweep)")
+    ap.add_argument("--logits-gap", action="store_true",
+                    help="only measure gemma2-27b's kernel-vs-plain logits "
+                         "gap by depth, softcaps and op (logits_gap)")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch --rmsnorm-times, "
                          "--ssd-times or --serving-runtime runs (default: "
@@ -2286,6 +2609,9 @@ def main(argv=()) -> int:
     if args.parity_sweep:
         parity_sweep(_card())
         return 0
+    if args.logits_gap:
+        logits_gap(_card())
+        return 0
     # cuBLAS reads this when it starts; the training slice's restart check
     # runs with deterministic algorithms, which require it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2306,10 +2632,17 @@ def main(argv=()) -> int:
     logs = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
+    # (kernel, a tag of its instance): bf16 instances, and fp32 ones where
+    # the tag starts with "If" (a template whose first argument is float)
     shown = [(k, t) for k in ("flash_fwd_kernel_sm90",
                               "flash_bwd_dq_kernel_sm90",
                               "flash_bwd_dkdv_kernel_sm90")
              for t in ("Li64E", "Li80E")] + [
+        ("flash_fwd_kernel_sm90", "Li128E"), ("flash_fwd_kernel_sm90",
+                                              "Li256E"),
+        ("flash_fwd_kernel", "IfLi256E"), ("decode_kernel", "Li128ELi7E"),
+        ("decode_kernel", "IfLi128ELi7E"), ("decode_kernel", "IfLi256ELi8E")
+    ] + [("decode_kernel", f"Li256ELi{g}E") for g in (1, 2, 4, 7, 8)] + [
         ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
         ("ssd_kernel_sm90", "Li64ELi64E"), ("ssd_kernel_sm90", "Li64ELi128E"),
         ("ssd_kernel_sm90", "Li128ELi64E"),
@@ -2326,34 +2659,57 @@ def main(argv=()) -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-                what = next((f"{k} {t}" for k, t in shown
-                             if k in entry and t in entry), None) \
-                    if "13__nv_bfloat16" in entry or "sm90b" in entry \
-                    else None
+                bf16 = "13__nv_bfloat16" in entry or "sm90b" in entry
+                what = next((f"{'fp32' if t.startswith('If') else 'bf16'} "
+                             f"{k} {t}" for k, t in shown
+                             if k in entry and t in entry
+                             and (bf16 or t.startswith("If"))), None)
             elif what and ("Used" in line or "spill" in line):
-                print(f"  {name} bf16 {what}: "
+                print(f"  {name} {what}: "
                       f"{line.split(':', 1)[-1].strip()}")
     print("HGMMA instructions in the SASS:", json.dumps(hgmma_counts(build)))
 
+    # wall seconds of each phase and of each part of phase 3
+    seconds = {"1 environment and build": time.perf_counter() - t_start}
+    mark = time.perf_counter()
+
+    def done(what):
+        nonlocal mark
+        now = time.perf_counter()
+        seconds[what] = now - mark
+        mark = now
+
     # 2. kernels against their plain versions
     inputs = check_kernels()
+    done("2 kernels")
 
     # 3. the slices: serving, then training
     launches, rms_calls = {}, {}
-    for arch, widths in SLICES:
-        launches[arch], rms_calls[arch] = run_slice(arch, widths, card)
+    for arch, widths, layers in SLICES:
+        launches[arch], rms_calls[arch] = run_slice(arch, widths, layers,
+                                                    card)
+        done(f"3 {arch}")
+        if arch == LONG_ARCH:
+            launches[LONG_KEY], rms_calls[LONG_KEY] = long_context_check()
+            done(f"3 {LONG_KEY}")
     launches[TRAIN_KEY], rms_calls[TRAIN_KEY], llama = run_training(card)
+    done(f"3 {TRAIN_KEY}")
     launches[COORD_KEY], rms_calls[COORD_KEY] = run_coordinator(card)
+    done(f"3 {COORD_KEY}")
     launches[ZTRAIN_KEY], rms_calls[ZTRAIN_KEY], _ = run_training(
         card, ZTRAIN_ARCH, ZTRAIN_KEY)
+    done(f"3 {ZTRAIN_KEY}")
     run_optimized(card, llama)
     run_remat(card)
     run_optimizers(card, llama)
+    done("3 optimized, remat, optimizers")
 
     # 4. numbers
     rows = kernel_numbers(inputs, launches, rms_calls, card)
+    done("4 numbers")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernel "
           f"build included")
+    print("phase seconds:", json.dumps(seconds))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

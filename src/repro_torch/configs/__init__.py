@@ -8,11 +8,17 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["llama3_2_1b", "zamba2_2_7b"]
+ARCHS = ["gemma_7b", "gemma2_27b", "llama3_2_1b", "deepseek_coder_33b",
+         "zamba2_2_7b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
-_ALIASES["llama3.2-1b"] = "llama3_2_1b"
-_ALIASES["zamba2-2.7b"] = "zamba2_2_7b"
+_ALIASES.update({
+    "gemma-7b": "gemma_7b",
+    "gemma2-27b": "gemma2_27b",
+    "llama3.2-1b": "llama3_2_1b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "zamba2-2.7b": "zamba2_2_7b",
+})
 
 
 def canonical(name: str) -> str:

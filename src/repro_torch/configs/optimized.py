@@ -14,7 +14,11 @@ import dataclasses
 from repro_torch import configs
 
 _OVERRIDES: dict[str, dict] = {
+    "gemma_7b": dict(fuse_qkv=True, fuse_glu=True, seq_parallel=True),
+    "gemma2_27b": dict(fuse_qkv=True, fuse_glu=True, seq_parallel=True),
     "llama3_2_1b": dict(fuse_qkv=True, fuse_glu=True, seq_parallel=True),
+    "deepseek_coder_33b": dict(fuse_qkv=True, fuse_glu=True,
+                               seq_parallel=True),
     "zamba2_2_7b": dict(fuse_glu=True),
 }
 

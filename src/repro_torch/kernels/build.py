@@ -50,7 +50,9 @@ SIGNATURES = {
         # null), dtype, B, T, H, KV, HD, window, scale, softcap, n_split,
         # stream
         "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _F, _I, _P]},
+                                 _I, _I, _F, _F, _I, _P],
+        # dtype, HD, G: 1 where decode_attention_fwd launches, else 0
+        "decode_attention_built": [_I, _I, _I]},
     "mamba_chunk_scan": {
         # x, dt, a, b, c, d, h0 (or null), y, h_final, dtype, B, S, NH,
         # HD, NS, stream
@@ -190,8 +192,10 @@ def entry(name: str, symbol: str | None = None):
     return getattr(load(name), symbol)
 
 
-# head dims the attention kernels are instantiated for (csrc/*.cu templates)
-HEAD_DIMS = (32, 64, 80, 128)
+# head dims the attention kernels are instantiated for (csrc/*.cu
+# templates): the flash forward and decode, and the flash backward
+HEAD_DIMS = (32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None, *,

@@ -55,12 +55,16 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float* in) {
 }
 
 // N consecutive floats from shared memory: one vector load where N is 1, 2
-// or 4 (the address is then aligned to N floats), else N scalar loads
+// or 4 (the address is then aligned to N floats), 16-byte loads where N is
+// a multiple of 4 (head_dim 256 gives a lane 8 dims), else N scalar loads
 // (head_dim 80 gives a lane 3 dims).
 template <int N>
 __device__ __forceinline__ void load_floats(const float* p, float* out) {
   if constexpr (N == 1 || N == 2 || N == 4) {
     load_vec<float, N>(p, out);
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) load_vec<float, 4>(p + i, out + i);
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = p[i];

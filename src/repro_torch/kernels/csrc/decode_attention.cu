@@ -41,12 +41,23 @@
 //  * Products stay on the CUDA cores in fp32: at G <= 16 query rows the
 //    tensor cores' 64-row tiles would be mostly padding, and the bytes
 //    bound the kernel, not the operations.
-//  * Head dims 32, 64, 80 and 128.  Keys are read at the true head dim in
-//    16-byte vectors (an 80-dim bf16 row is ten), a lane a position.  In
-//    the PV product a lane reads a vector of one value row, so a warp
-//    reads whole rows at once (three rows of ten lanes at hd 80 bf16);
-//    the row groups' sums meet by shuffles at the end.  At G = 16 the
-//    vectors are halved to keep the accumulators in registers.
+//  * Head dims 32, 64, 80, 128 and 256; G = 1, 2, 4, 7, 8 and 16.  Keys
+//    are read at the true head dim in 16-byte vectors (an 80-dim bf16 row
+//    is ten), a lane a position.  In the PV product a lane reads a vector
+//    of one value row, so a warp reads whole rows at once (three rows of
+//    ten lanes at hd 80 bf16); the row groups' sums meet by shuffles at
+//    the end.  At G = 16 the vectors are halved to keep the accumulators
+//    in registers.  A row wider than 32 vectors (hd 256 in fp32, or at
+//    G = 16) is covered by each lane taking CPL vectors 32 vectors apart.
+//    A lane then holds G * hd / 32 accumulators; the pairs where that
+//    passes 64, (256, 16) alone, are not built (PvLayout::BUILT, the one
+//    statement of the rule), and the wrapper
+//    (kernels/decode_attention.py::instantiated) refuses them; the
+//    exported decode_attention_built lets a test hold the two together.
+//    Shared memory comes to 72 KB at (256, 7) and 81 KB at (256, 8): two
+//    CTAs an SM by shared memory, one by registers where a thread needs
+//    more than 128 (bf16: 182 at (256, 7), 140 at (256, 8) and (128, 7);
+//    -Xptxas -v on the card).
 
 #include "common.cuh"
 
@@ -64,6 +75,22 @@ constexpr size_t smem_bytes() {
          (G * HD + NWARPS * G * 32 + 2 * NWARPS * G + NWARPS * G * HD);
 }
 
+// The P V layout of (T, HD, G): a lane loads PV consecutive value dims of
+// one row, CPL times, LPR vectors apart; LPR lanes cover a row, and a warp
+// RPW rows at once (lanes past RPW * LPR idle); NA accumulators a lane a
+// query row.  BUILT: the layout covers the row and a lane's G * NA
+// accumulators fit 64 registers; the kernel asserts it and the launch
+// switch instantiates only such pairs.
+template <typename T, int HD, int G>
+struct PvLayout {
+  static constexpr int VEC = 16 / sizeof(T);  // elements a 16-byte load
+  static constexpr int PV = VEC * G <= 64 ? VEC : 64 / G;
+  static constexpr int LPR = HD / PV < 32 ? HD / PV : 32;
+  static constexpr int CPL = HD / (PV * LPR), RPW = 32 / LPR;
+  static constexpr int NA = CPL * PV;
+  static constexpr bool BUILT = CPL * PV * LPR == HD && G * NA <= 64;
+};
+
 // One split of one (KV head, batch).  With o set (one split) it writes the
 // output; else its partial (m, l, acc) goes to pm, pl, pacc, indexed
 // [split][batch * H + head] (pacc with a trailing head dim).
@@ -75,11 +102,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               float* __restrict__ pl, float* __restrict__ pacc, int T_len,
               int KV, int window, float scale, float softcap,
               int split_len) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte key load
-  // P V: a lane loads PV consecutive value dims of one row; LPR lanes
-  // cover a row, and a warp RPW rows at once (lanes past RPW * LPR idle)
-  constexpr int PV = VEC * G <= 64 ? VEC : 64 / G;
-  constexpr int LPR = HD / PV, RPW = 32 / LPR;
+  using L = PvLayout<T, HD, G>;
+  constexpr int VEC = L::VEC, PV = L::PV, LPR = L::LPR, CPL = L::CPL;
+  constexpr int RPW = L::RPW, NA = L::NA;
+  static_assert(L::BUILT,
+                "decode_kernel: a (head dim, G) pair that is not built");
 
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
@@ -107,13 +134,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int rg = lane / LPR, c0 = lane % LPR * PV;  // row group, 1st dim
-  float m[G], l[G], acc[G][PV];
+  float m[G], l[G], acc[G][NA];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < PV; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < NA; ++i) acc[g][i] = 0.f;
   }
   float* sPw = sP + warp * G * 32;
 
@@ -150,7 +177,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[g] = l[g] * alpha + warp_sum(p);
       m[g] = m_new;
 #pragma unroll
-      for (int i = 0; i < PV; ++i) acc[g][i] *= alpha;
+      for (int i = 0; i < NA; ++i) acc[g][i] *= alpha;
       sPw[g * 32 + lane] = p;
     }
     __syncwarp();
@@ -160,13 +187,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vr = vb + base * rs + c0;
 #pragma unroll 4
     for (int j = rg; j < nj; j += RPW) {
-      float vf[PV];
-      load_vec<T, PV>(vr + j * rs, vf);
+      float vf[NA];
+#pragma unroll
+      for (int ci = 0; ci < CPL; ++ci)
+        load_vec<T, PV>(vr + j * rs + ci * LPR * PV, vf + ci * PV);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = sPw[g * 32 + j];
 #pragma unroll
-        for (int i = 0; i < PV; ++i) acc[g][i] += pj * vf[i];
+        for (int i = 0; i < NA; ++i) acc[g][i] += pj * vf[i];
       }
     }
     __syncwarp();
@@ -176,7 +205,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < PV; ++i) {
+    for (int i = 0; i < NA; ++i) {
       float sum = acc[g][i];
 #pragma unroll
       for (int r = 1; r < RPW; ++r)
@@ -193,8 +222,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (lane < LPR)
 #pragma unroll
-      for (int i = 0; i < PV; ++i)
-        sA[(warp * G + g) * HD + c0 + i] = acc[g][i];
+      for (int i = 0; i < NA; ++i)
+        sA[(warp * G + g) * HD + c0 + i / PV * LPR * PV + i % PV] =
+            acc[g][i];
   }
   __syncthreads();
   for (int idx = tid; idx < G * HD; idx += THREADS) {
@@ -258,6 +288,7 @@ struct Args {
   int B, T_len, KV, window, n_split;
   float scale, softcap;
   cudaStream_t stream;
+  bool dry = false;  // only report whether the pair is built; launch nothing
 };
 
 template <typename T, int HD, int G>
@@ -290,14 +321,24 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// The (head dim, G) pairs that are built: PvLayout::BUILT.
+template <typename T, int HD, int G>
+cudaError_t launch_if_built(const Args& a) {
+  if constexpr (PvLayout<T, HD, G>::BUILT)
+    return a.dry ? cudaSuccess : launch<T, HD, G>(a);
+  else
+    return cudaErrorInvalidValue;
+}
+
 template <typename T, int HD>
 cudaError_t launch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, HD, 1>(a);
-    case 2: return launch<T, HD, 2>(a);
-    case 4: return launch<T, HD, 4>(a);
-    case 8: return launch<T, HD, 8>(a);
-    case 16: return launch<T, HD, 16>(a);
+    case 1: return launch_if_built<T, HD, 1>(a);
+    case 2: return launch_if_built<T, HD, 2>(a);
+    case 4: return launch_if_built<T, HD, 4>(a);
+    case 7: return launch_if_built<T, HD, 7>(a);
+    case 8: return launch_if_built<T, HD, 8>(a);
+    case 16: return launch_if_built<T, HD, 16>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -309,6 +350,7 @@ cudaError_t launch_hd(int HD, int G, const Args& a) {
     case 64: return launch_g<T, 64>(G, a);
     case 80: return launch_g<T, 80>(G, a);
     case 128: return launch_g<T, 128>(G, a);
+    case 256: return launch_g<T, 256>(G, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -334,4 +376,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   if (dtype == DTYPE_BF16)
     return (int)launch_hd<__nv_bfloat16>(HD, H / KV, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// 1 where decode_attention_fwd launches (dtype, HD, G = H / KV), else 0:
+// the launch switch itself, run without a launch.
+extern "C" int decode_attention_built(int dtype, int HD, int G) {
+  Args a{};
+  a.dry = true;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32) e = launch_hd<float>(HD, G, a);
+  if (dtype == DTYPE_BF16) e = launch_hd<__nv_bfloat16>(HD, G, a);
+  return e == cudaSuccess ? 1 : 0;
 }

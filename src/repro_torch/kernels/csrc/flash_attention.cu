@@ -50,6 +50,13 @@
 //    thread at hd 64 and 126 at hd 80, no spills (-Xptxas -v on the
 //    card), so two CTAs fit an SM.  O leaves through the K/V stages for
 //    coalesced 16-byte stores.
+//  * Head dim 256 (gemma-7b) keeps the same design: P V is one
+//    m64n256k16 a K step, so a thread holds 128 output accumulators
+//    beside its 32 scores, in 220 registers without a spill (-Xptxas -v
+//    on the card); shared memory is 192 KB (196,608 bytes), one CTA of
+//    two warpgroups an SM.  One warpgroup a CTA would not fit two CTAs
+//    either (160 KB), and halving the kv tile or splitting the output
+//    would leave the 128 accumulators as they are.
 //  * What keeps it from its bound: each wgmma group is waited for before
 //    the softmax that needs it, and the softmax before the next product,
 //    so within a warpgroup the tensor cores idle while the CUDA cores
@@ -65,9 +72,10 @@
 //    registers; each K/V tile is staged once in shared memory as fp32 and
 //    shared by the CTA's 4 warps x 8 query rows; scores and the PV
 //    product are fp32 FMAs.
-//  * Head dims 32, 64, 80 and 128.  In the PV product each lane owns
+//  * Head dims 32, 64, 80, 128 and 256.  In the PV product each lane owns
 //    HDP / 32 output dims, HDP being the head dim rounded up to whole
-//    lanes (96 for 80).  Q and K are staged at the true head dim (q.k runs
+//    lanes (96 for 80; 8 dims a lane at 256, with 32-row kv tiles and
+//    103,424 bytes of shared memory, two CTAs an SM).  Q and K are staged at the true head dim (q.k runs
 //    over it in float4 steps); V is staged HDP wide with the pad columns
 //    zeroed once, and the pad output dims are never stored.
 //
@@ -276,8 +284,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float out[DPL];
 #pragma unroll
     for (int i = 0; i < DPL; ++i) out[i] = acc[r][i] * inv;
-    if constexpr (HDP == HD) {
-      store_vec<T, DPL>(ob + row * qrs + lane * DPL, out);
+    if constexpr (HDP == HD) {  // 16-byte stores at most (hd 256: two)
+      constexpr int SV = DPL * sizeof(T) <= 16 ? DPL : 16 / sizeof(T);
+#pragma unroll
+      for (int i = 0; i < DPL; i += SV)
+        store_vec<T, SV>(ob + row * qrs + lane * DPL + i, out + i);
     } else {
 #pragma unroll
       for (int i = 0; i < DPL; ++i)
@@ -553,6 +564,7 @@ cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
     REPRO_CASE(64)
     REPRO_CASE(80)
     REPRO_CASE(128)
+    REPRO_CASE(256)
 #undef REPRO_CASE
     default:
       return cudaErrorInvalidValue;

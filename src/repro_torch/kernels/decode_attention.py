@@ -13,7 +13,14 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "decode_attention"
-GROUP_SIZES = (1, 2, 4, 8, 16)  # H/KV values the kernel is instantiated for
+GROUP_SIZES = (1, 2, 4, 7, 8, 16)  # H/KV values the kernel is built for
+# fp32 accumulators a lane holds for its G query rows: a (head_dim, G)
+# pair is built where G * head_dim / 32 <= MAX_ACC (every pair of
+# build.HEAD_DIMS and GROUP_SIZES but (256, 16)).  The source of the rule
+# is PvLayout::BUILT in csrc/decode_attention.cu; its exported
+# decode_attention_built answers for the C switch, and the card's tests
+# hold ``instantiated`` to it
+MAX_ACC = 64
 MAX_SPLITS = 16        # most ranges the cache's positions are split into
 MIN_SPLIT_LEN = 256    # fewest positions a split covers: 32 for each warp
 CTAS_PER_SM = 8        # 256-thread CTAs that fill an SM's 2048 threads
@@ -27,6 +34,13 @@ def n_splits(b: int, kv: int, t: int, sms: int = 132) -> int:
     device), so the launch needs no sync."""
     want = -(-CTAS_PER_SM * sms // (b * kv))
     return max(1, min(want, -(-t // MIN_SPLIT_LEN), MAX_SPLITS))
+
+
+def instantiated(hd: int, g: int) -> bool:
+    """Whether the kernel is built for head dim ``hd`` and group size
+    ``g`` (the same pairs in both dtypes)."""
+    return (hd in build.HEAD_DIMS and g in GROUP_SIZES
+            and g * hd <= 32 * MAX_ACC)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +72,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv == 0 or h % kv or h // kv not in GROUP_SIZES:
         raise ValueError(f"{NAME}: {h} query heads over {kv} kv heads; "
                          f"group size must be one of {GROUP_SIZES}")
+    if not instantiated(hd, h // kv):
+        raise ValueError(f"{NAME}: head_dim {hd} with group size {h // kv} "
+                         f"is not built (G * head_dim / 32 > {MAX_ACC} "
+                         f"accumulators a lane)")
     if b == 0 or t == 0:
         raise ValueError(f"{NAME}: empty input")
     out = torch.empty_like(q)
@@ -66,7 +84,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     part = (torch.empty(n * b * h * (hd + 2), dtype=torch.float32,
                         device=q.device) if n > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.entry(NAME)(
+    err = build.entry(NAME, NAME + "_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
         build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],

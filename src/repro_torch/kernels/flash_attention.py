@@ -28,7 +28,8 @@ def rows_without_keys(s: int, t: int, q_offset: int,
     return window is not None and window > 0 and q_offset + s >= t + window
 
 
-def _check(kernel: str, q, k, v, q_offset: int, window: int | None) -> None:
+def _check(kernel: str, q, k, v, q_offset: int, window: int | None,
+           head_dims: tuple[int, ...]) -> None:
     for arg, t in (("q", q), ("k", k), ("v", v)):
         build.check_operand(kernel, arg, t, 4,
                             None if arg == "q" else q.dtype)
@@ -37,8 +38,8 @@ def _check(kernel: str, q, k, v, q_offset: int, window: int | None) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"{kernel}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if hd not in build.HEAD_DIMS:
-        raise ValueError(f"{kernel}: head_dim {hd} not in {build.HEAD_DIMS}")
+    if hd not in head_dims:
+        raise ValueError(f"{kernel}: head_dim {hd} not in {head_dims}")
     if kv == 0 or h % kv:
         raise ValueError(f"{kernel}: {h} query heads over {kv} kv heads")
     if min(b, s, t) == 0 or q_offset < 0:
@@ -64,7 +65,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on inputs with a query row that has no live key
     (:func:`rows_without_keys`)."""
     build.check_no_grad(NAME, q, k, v)
-    _check(NAME, q, k, v, q_offset, window)
+    _check(NAME, q, k, v, q_offset, window, build.HEAD_DIMS)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -102,9 +103,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output ``o``, its log-sum-exp ``lse`` (B,H,S) fp32 and the output
     gradient ``do``.  Query row i sits at position q_offset + i, as in
     the forward, and as there a query row with no live key raises
-    ValueError (:func:`rows_without_keys`)."""
+    ValueError (:func:`rows_without_keys`).  The backward is built for
+    ``build.BWD_HEAD_DIMS`` (no 256: gemma-7b serves, it does not train
+    yet), and raises ValueError on any other head_dim."""
     build.check_no_grad(BWD_NAME, q, k, v, o, lse, do)
-    _check(BWD_NAME, q, k, v, q_offset, window)
+    _check(BWD_NAME, q, k, v, q_offset, window, build.BWD_HEAD_DIMS)
     for arg, t in (("o", o), ("do", do)):
         build.check_operand(BWD_NAME, arg, t, 4, q.dtype)
         if t.shape != q.shape:

@@ -9,7 +9,9 @@ Three execution modes share one code path, as in
 Unlike the JAX version, prefill and decode write the KV cache in place and
 return the same cache dict.  ``cfg.fuse_qkv`` keeps one (D, (H + 2 KV) hd)
 projection ``wqkv`` in place of ``wq``/``wk``/``wv``, as the JAX version
-does.  Not ported yet: ``qk_norm``, MLA and cross-attention.
+does.  ``spec.qk_norm`` adds an RMSNorm over head_dim on q and k (leaves
+``q_norm``, ``k_norm``) after the projections and before RoPE.  Not
+ported yet: MLA and cross-attention.
 """
 from __future__ import annotations
 
@@ -20,31 +22,30 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.models.config import LayerSpec, ModelConfig, dtype_of
 
 Params = Any
 
 
-def _check_supported(spec: LayerSpec) -> None:
-    if spec.qk_norm:
-        raise NotImplementedError("qk_norm: not ported yet")
-
-
 def init_attn(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
               device: torch.device) -> Params:
-    _check_supported(spec)
     dt = dtype_of(cfg)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if cfg.fuse_qkv:
-        return {"wqkv": dense_init(gen, d, ((h + 2 * kv) * hd,), dt, device),
-                "wo": dense_init(gen, h * hd, (d,), dt, device)}
-    return {
-        "wq": dense_init(gen, d, (h * hd,), dt, device),
-        "wk": dense_init(gen, d, (kv * hd,), dt, device),
-        "wv": dense_init(gen, d, (kv * hd,), dt, device),
-        "wo": dense_init(gen, h * hd, (d,), dt, device),
-    }
+        p = {"wqkv": dense_init(gen, d, ((h + 2 * kv) * hd,), dt, device),
+             "wo": dense_init(gen, h * hd, (d,), dt, device)}
+    else:
+        p = {
+            "wq": dense_init(gen, d, (h * hd,), dt, device),
+            "wk": dense_init(gen, d, (kv * hd,), dt, device),
+            "wv": dense_init(gen, d, (kv * hd,), dt, device),
+            "wo": dense_init(gen, h * hd, (d,), dt, device),
+        }
+    if spec.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dt, device)
+        p["k_norm"] = rmsnorm_init(hd, dt, device)
+    return p
 
 
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -70,7 +71,6 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     When ``cache`` is given and S > 1 this is prefill (cache written at
     [0, S)); when S == 1 it is a decode step at ``positions[:, 0]``.
     """
-    _check_supported(spec)
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in params:  # one projection matmul instead of three
@@ -81,6 +81,9 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
+    if spec.qk_norm:
+        q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
     q = common.apply_rope(q, positions, theta=cfg.rope_theta)
     k = common.apply_rope(k, positions, theta=cfg.rope_theta)
 

@@ -1,9 +1,11 @@
 """Layer composition and the loop-over-layers group machinery.
 
 One *layer* = (pre-norm -> mixer block -> residual) + optional
-(pre-norm -> MLP -> residual).  A *group* repeats a pattern of layers whose
-params are stacked over the repeat axis, as in :mod:`repro.models.blocks`;
-a Python loop over that axis takes the place of ``lax.scan``.
+(pre-norm -> MLP -> residual), with gemma2-style post-norms (a norm of the
+block's output before the residual add) when ``spec.post_norms``.  A
+*group* repeats a pattern of layers whose params are stacked over the
+repeat axis, as in :mod:`repro.models.blocks`; a Python loop over that
+axis takes the place of ``lax.scan``.
 Weight-shared slots (zamba2's shared attention) are not stacked: every
 repeat uses the same params, but each repeat keeps its own cache.  Caches
 are written in place.  ``cfg.remat="full"`` checkpoints one repeat of the
@@ -18,8 +20,8 @@ them: they run again in the recomputation, as under ``"full"`` (and as
 ``checkpoint_dots`` recomputes a ``pallas_call``, which is not a dot).
 
 Ported: mixers ``attn`` and ``mamba2`` and pure-MLP layers (``kind="none"``),
-with ``mlp="glu"`` (gated or plain) or ``"none"``.  Not yet: ``mla``,
-``mlstm``/``slstm``, ``cross_attn``, MoE and post-norms.
+with ``mlp="glu"`` (gated or plain) or ``"none"``, and post-norms.  Not
+yet: ``mla``, ``mlstm``/``slstm``, ``cross_attn`` and MoE.
 """
 from __future__ import annotations
 
@@ -67,8 +69,6 @@ def _check_supported(spec: LayerSpec) -> None:
             spec.mlp not in ("glu", "none"):
         raise NotImplementedError(
             f"layer kind={spec.kind!r} mlp={spec.mlp!r}: not ported yet")
-    if spec.post_norms:
-        raise NotImplementedError("post_norms: not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -83,9 +83,13 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     if spec.kind != "none":
         p["pre_norm"] = rmsnorm_init(cfg.d_model, dt, device)
         p["mixer"] = _MIXER_INIT[spec.kind](gen, cfg, spec, device)
+        if spec.post_norms:
+            p["post_norm"] = rmsnorm_init(cfg.d_model, dt, device)
     if spec.mlp != "none":
         p["pre_mlp_norm"] = rmsnorm_init(cfg.d_model, dt, device)
         p["mlp"] = init_mlp(gen, cfg, device)
+        if spec.post_norms:
+            p["post_mlp_norm"] = rmsnorm_init(cfg.d_model, dt, device)
     return p
 
 
@@ -110,10 +114,15 @@ def apply_layer(params: Params, cfg: ModelConfig, spec: LayerSpec,
         else:
             h, cache = mamba2.apply_mamba2(params["mixer"], cfg, spec, h,
                                            cache)
+        if spec.post_norms:
+            h = rmsnorm(params["post_norm"], h, eps=cfg.norm_eps)
         x = x + h
     if spec.mlp != "none":
         h = rmsnorm(params["pre_mlp_norm"], x, eps=cfg.norm_eps)
-        x = x + apply_mlp(params["mlp"], cfg, h)
+        h = apply_mlp(params["mlp"], cfg, h)
+        if spec.post_norms:
+            h = rmsnorm(params["post_mlp_norm"], h, eps=cfg.norm_eps)
+        x = x + h
     return x, cache
 
 
@@ -123,14 +132,24 @@ def apply_layer(params: Params, cfg: ModelConfig, spec: LayerSpec,
 
 def init_group(gen: torch.Generator, cfg: ModelConfig, gspec: GroupSpec,
                device: torch.device) -> Params:
+    """Each unshared slot's params stacked over the repeats, drawn repeat
+    by repeat and copied into the stack as they come, so the card holds
+    the stack and one repeat, not the stack twice (gemma2-27b's two slots
+    are 26 GB each in bf16)."""
     slot_params = []
     for spec in gspec.pattern:
         if spec.shared:
             slot_params.append(init_layer(gen, cfg, spec, device))
             continue
-        reps = [init_layer(gen, cfg, spec, device)
-                for _ in range(gspec.repeat)]
-        slot_params.append(tree_map(lambda *a: torch.stack(a), *reps))
+        first = init_layer(gen, cfg, spec, device)
+        stack = tree_map(lambda a: a.new_empty((gspec.repeat, *a.shape)),
+                         first)
+        for r in range(gspec.repeat):
+            layer = first if r == 0 else init_layer(gen, cfg, spec, device)
+            tree_map(lambda s, a: s[r].copy_(a), stack, layer)
+            del layer
+        del first
+        slot_params.append(stack)
     return {"slots": tuple(slot_params)}
 
 

@@ -52,6 +52,12 @@ def _close(got, want, dtype):
     (1, 129, 129, 8, 2, 128, False, None, None, 0),
     (1, 129, 129, 4, 2, 80, True, 48, 30.0, 0),      # hd 80, window, cap
     (1, 65, 65, 8, 1, 32, True, 16, 50.0, 0),
+    (1, 200, 200, 16, 16, 256, True, None, None, 0),  # gemma-7b's hd 256
+    (2, 77, 130, 4, 2, 256, True, 40, 50.0, 53),
+    (1, 129, 129, 4, 1, 256, False, None, 30.0, 0),
+    (1, 1, 1, 2, 2, 256, True, None, None, 0),
+    (1, 150, 150, 14, 2, 128, True, None, None, 0),  # G = 7 (deepseek)
+    (1, 300, 300, 8, 4, 128, True, 96, 50.0, 0),     # gemma2's window, cap
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal,
                                     window, cap, q_offset):
@@ -75,6 +81,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal,
     (2, 64, 8, 8, 128, None, 20.0),
     (8, 1024, 32, 32, 80, None, None),               # zamba2's hd 80, G 1
     (3, 300, 8, 2, 80, 100, 30.0),
+    (8, 1024, 16, 16, 256, None, None),              # gemma-7b
+    (8, 1024, 56, 8, 128, None, None),               # deepseek-coder, G 7
+    (3, 700, 32, 16, 128, 256, 50.0),                # gemma2, local layer
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, b, t, h, kv, hd, window,
                                      cap):
@@ -116,6 +125,63 @@ def test_decode_kernel_every_split(cuda, dtype, window, n_split):
     assert torch.equal(got, again)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     _close(got[1:], ref.decode_attention(q, k, v, **kw)[1:], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,g", [(256, g) for g in da.GROUP_SIZES
+                                  if da.instantiated(256, g)]
+                         + [(hd, 7) for hd in (32, 64, 80, 128)])
+def test_decode_kernel_every_dense_pair(cuda, dtype, hd, g):
+    """Head dim 256 at each G the wrapper takes, and G = 7 at every head
+    dim, through 1 and 4 splits, with a window and a softcap: within
+    tolerance of the plain version, free of NaN and bit-equal twice."""
+    rng = np.random.default_rng(hd + g)
+    for b, t in ((2, 200), (8, 1024)):
+        q = _randn(rng, (b, 1, 2 * g, hd), dtype, cuda)
+        k = _randn(rng, (b, t, 2, hd), dtype, cuda)
+        v = _randn(rng, (b, t, 2, hd), dtype, cuda)
+        lengths = torch.from_numpy(rng.integers(
+            1, t + 1, size=(b,)).astype(np.int32)).to(cuda)
+        kw = dict(lengths=lengths, window=150, softcap=50.0,
+                  scale=hd ** -0.5)
+        got = da.decode_attention(q, k, v, **kw)
+        again = da.decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert not torch.isnan(got).any()
+        assert torch.equal(got, again)
+        _close(got, ref.decode_attention(q, k, v, **kw), dtype)
+
+
+def test_decode_wrapper_takes_the_pairs_the_switch_builds(cuda):
+    """``instantiated`` (the wrapper's rule) agrees with the C launch
+    switch (``decode_attention_built``) on every head dim and G up to 16,
+    in both dtypes: the wrapper never passes a pair the switch refuses."""
+    from repro_torch.kernels import build
+    built = build.entry(da.NAME, da.NAME + "_built")
+    for dtype in ("float32", "bfloat16"):
+        for hd in (16, *build.HEAD_DIMS, 96):
+            for g in range(1, 17):
+                c = bool(built(build.DTYPE_CODES[dtype], hd, g))
+                assert c == (da.instantiated(hd, g)), (dtype, hd, g)
+
+
+def test_dense_kernels_refuse_what_is_not_built(cuda):
+    """The flash backward is not built for head_dim 256, nor decode for
+    (256, 16): both wrappers raise a ValueError naming it, and launch
+    nothing."""
+    q = torch.zeros(1, 64, 4, 256, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16, device=cuda)
+    o, lse = fa.flash_attention_fwd(q, k, k)
+    n = fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="head_dim 256"):
+        fa.flash_attention_bwd(q, k, k, o, lse, q)
+    assert fa.flash_attention_bwd.launches == n
+    q = torch.zeros(1, 1, 32, 256, dtype=torch.bfloat16, device=cuda)
+    n = da.decode_attention.launches
+    with pytest.raises(ValueError, match="group size 16"):
+        da.decode_attention(q, k, k, lengths=torch.ones(
+            1, dtype=torch.int32, device=cuda))
+    assert da.decode_attention.launches == n
 
 
 SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
@@ -375,6 +441,52 @@ def test_model_on_card_matches_cpu(cuda):
                                    torch.full((2,), 20, dtype=torch.int32,
                                               device=dev))
         outs.append((pre.cpu(), dec.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch,widths", [
+    # gemma2: post-norms, window 8 on every other layer, both softcaps
+    ("gemma2-27b", dict(d_model=128, num_heads=4, num_kv_heads=2,
+                        head_dim=32, d_ff=256, attn_scale=1 / 12)),
+    ("gemma-7b", dict(d_model=128, num_heads=2, num_kv_heads=2,
+                      head_dim=256, d_ff=256)),           # head_dim 256
+    ("deepseek-coder-33b", dict(d_model=128, num_heads=14, num_kv_heads=2,
+                                head_dim=32, d_ff=256)),  # G = 7
+])
+def test_dense_family_on_card_matches_cpu(cuda, arch, widths):
+    """Small dense-family models: prefill + decode logits through the
+    kernels match the CPU plain path, and each prefill and decode step
+    launched flash, decode and rmsnorm as the layers ask (gemma2: four
+    norms a layer)."""
+    from repro_torch import configs
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import model
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **widths)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = tree_map(lambda a: a + 0.05 * torch.randn_like(a)
+                      if a.dim() == 1 else a, params)  # norm scales not 0
+    params_gpu = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 41)).astype(np.int32))
+    layers = sum(len(g.pattern) * g.repeat for g in cfg.groups)
+    norms = 1 + sum((2 + 2 * s.post_norms) * g.repeat
+                    for g in cfg.groups for s in g.pattern)
+    outs = []
+    for dev, p in (("cpu", params), (cuda, params_gpu)):
+        cache = model.init_cache(cfg, 2, 48, device=dev)
+        n = (fa.flash_attention.launches, da.decode_attention.launches,
+             rn.rmsnorm_fwd.launches)
+        pre, cache = model.prefill(p, cfg, toks[:, :-1].to(dev), cache)
+        dec, _ = model.decode_step(p, cfg, toks[:, -1:].to(dev), cache,
+                                   torch.full((2,), 40, dtype=torch.int32,
+                                              device=dev))
+        launched = (fa.flash_attention.launches - n[0],
+                    da.decode_attention.launches - n[1],
+                    rn.rmsnorm_fwd.launches - n[2])
+        outs.append((pre.cpu(), dec.cpu()))
+    assert launched == (layers, layers, 2 * norms)
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
 

@@ -39,6 +39,20 @@ DECODE_CASES = [
     (3, 256, 16, 8, 64, None, 30.0),
     (2, 384, 8, 1, 32, 64, None),
 ]
+# the dense family's shapes: head_dim 256 (gemma-7b), G = 7
+# (deepseek-coder-33b's 56/8 heads), gemma2's window, softcap and 1/12
+FLASH_DENSE_CASES = [  # (b, s, h, kv, hd, causal, window, cap, scale)
+    (1, 96, 4, 4, 256, True, None, None, 1 / 16),
+    (2, 80, 4, 2, 256, True, 32, 50.0, 1 / 16),
+    (1, 100, 14, 2, 128, True, None, None, 128 ** -0.5),
+    (1, 160, 8, 4, 128, True, 64, 50.0, 1 / 12),
+]
+DECODE_DENSE_CASES = [  # (b, t, h, kv, hd, window, cap)
+    (3, 256, 4, 4, 256, None, None),
+    (2, 300, 14, 2, 256, 64, 50.0),
+    (3, 256, 7, 1, 128, None, None),
+    (2, 384, 56, 8, 128, 100, 30.0),
+]
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -83,6 +97,50 @@ def test_decode_attention_matches_jax_ref(dtype, b, t, h, kv, hd, window,
     want = jref.decode_attention(
         qj, kj, vj, lengths=jnp.asarray(lengths, jnp.int32), **kw)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap,scale",
+                         FLASH_DENSE_CASES)
+def test_flash_attention_dense_family_matches_jax_ref(dtype, b, s, h, kv, hd,
+                                                      causal, window, cap,
+                                                      scale):
+    """The plain flash attention (the CPU path and the card's reference)
+    at head_dim 256, at G = 7, and at gemma2's window, softcap and scale."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        s + h + hd, dtype, (b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))
+    kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
+    _close(ops.flash_attention(qt, kt, vt, **kw),
+           jref.flash_attention(qj, kj, vj, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,kv,hd,window,cap", DECODE_DENSE_CASES)
+def test_decode_attention_dense_family_matches_jax_ref(dtype, b, t, h, kv, hd,
+                                                       window, cap):
+    """The plain decode attention at head_dim 256 and at G = 7, with a
+    window and a softcap."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        t + h + hd, dtype, (b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd))
+    lengths = np.random.default_rng(t + h).integers(1, t, size=(b,))
+    kw = dict(window=window, softcap=cap, scale=1.0 / np.sqrt(hd))
+    got = ops.decode_attention(
+        qt, kt, vt, lengths=torch.from_numpy(lengths.astype(np.int32)), **kw)
+    want = jref.decode_attention(
+        qj, kj, vj, lengths=jnp.asarray(lengths, jnp.int32), **kw)
+    _close(got, want, dtype)
+
+
+def test_plain_rmsnorm_at_the_dense_widths():
+    """The plain rmsnorm at gemma-7b's, gemma2's and deepseek-coder's
+    d_model, and over head_dim 256 (a qk_norm), against the JAX oracle."""
+    rng = np.random.default_rng(16)
+    for rows, d in ((8, 3072), (4, 4608), (3, 7168), (6, 256)):
+        x = rng.standard_normal((rows, d)).astype(np.float32)
+        scale = (rng.standard_normal(d) * 0.1).astype(np.float32)
+        got = ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale))
+        want = jref.rmsnorm(jnp.asarray(x), jnp.asarray(scale))
+        _close(got, want, "float32")
 
 
 def test_flash_attention_matches_pallas_kernel():
@@ -417,6 +475,76 @@ def test_decode_wrapper_passes_splits_where_signatures_declare():
         else:
             part.assert_not_called()
             assert args[5] is None
+
+
+@pytest.mark.parametrize("hd,g", [(hd, g) for hd in (32, 64, 80, 128, 256)
+                                  for g in (1, 2, 4, 7, 8, 16)])
+def test_decode_wrapper_refuses_pairs_not_built(hd, g):
+    """The wrapper (with the library and the CUDA checks mocked out)
+    launches every (head_dim, G) pair the kernel is built for, G = 7
+    among them, and refuses the one it is not, (256, 16), before any
+    launch, with a ValueError that names it."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    calls = []
+    stream = mock.Mock(cuda_stream=7)
+    q = torch.zeros(2, 1, 2 * g, hd)
+    k = torch.zeros(2, 64, 2, hd)
+    with mock.patch.object(build, "entry",
+                           lambda *a: lambda *args: calls.append(args) or 0), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(da, "_sm_count", return_value=132), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        n = da.decode_attention.launches
+        if (hd, g) == (256, 16):
+            assert not da.instantiated(hd, g)
+            with pytest.raises(ValueError, match="head_dim 256 with group "
+                                                 "size 16"):
+                da.decode_attention(q, k, k, lengths=torch.ones(
+                    2, dtype=torch.int32))
+            assert not calls and da.decode_attention.launches == n
+        else:
+            assert da.instantiated(hd, g)
+            da.decode_attention(q, k, k, lengths=torch.ones(
+                2, dtype=torch.int32))
+            (args,) = calls
+            assert args[9:12] == (2 * g, 2, hd)   # H, KV, HD
+            assert da.decode_attention.launches == n + 1
+    da.decode_attention.launches = 0
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_wrappers_take_head_dim_256_forward_only(hd):
+    """head_dim 256 reaches the forward kernel and not the backward,
+    which is not built for it: its wrapper raises a ValueError that names
+    the head dim and launches nothing (library and CUDA checks mocked)."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    calls = []
+    stream = mock.Mock(cuda_stream=7)
+    q = torch.zeros(1, 64, 4, hd)
+    k = torch.zeros(1, 64, 2, hd)
+    lse = torch.zeros(1, 4, 64)
+    with mock.patch.object(build, "entry",
+                           lambda *a: lambda *args: calls.append(args) or 0), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        fa.flash_attention(q, k, k)
+        assert calls.pop()[11] == hd
+        n = fa.flash_attention_bwd.launches
+        if hd == 256:
+            with pytest.raises(ValueError, match="head_dim 256 not in"):
+                fa.flash_attention_bwd(q, k, k, q, lse, q)
+            assert not calls and fa.flash_attention_bwd.launches == n
+        else:
+            fa.flash_attention_bwd(q, k, k, q, lse, q)
+            assert calls.pop()[16] == hd
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

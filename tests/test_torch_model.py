@@ -1,6 +1,6 @@
-"""The port's models (llama3.2-1b, zamba2-2.7b) against the JAX models, on
-JAX-initialised params moved over by repro_torch.bridge (smoke configs,
-CPU)."""
+"""The port's models (llama3.2-1b, zamba2-2.7b, gemma-7b, gemma2-27b,
+deepseek-coder-33b) against the JAX models, on JAX-initialised params
+moved over by repro_torch.bridge (smoke configs, CPU)."""
 import dataclasses
 import itertools
 
@@ -20,12 +20,19 @@ from repro_torch.models import model as tmodel  # noqa: E402
 
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_models.py
 CACHE_TOL = dict(rtol=2e-5, atol=2e-5)
+ARCHS = ("llama3.2-1b", "zamba2-2.7b", "gemma-7b", "gemma2-27b",
+         "deepseek-coder-33b")
+DENSE = ("gemma-7b", "gemma2-27b", "deepseek-coder-33b")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg_j = jconfigs.get_config("llama3.2-1b", smoke=True)
-    cfg_t = tconfigs.get_config("llama3.2-1b", smoke=True)
+# the dense archs: gemma-7b (head_dim 256 at full width; GeGLU, scaled
+# embeddings), gemma2-27b (post-norms, local/global windows, both
+# softcaps, attn_scale), deepseek-coder-33b (untied head; 56/8 heads,
+# G = 7, at full width)
+@pytest.fixture(scope="module", params=("llama3.2-1b", *DENSE))
+def setup(request):
+    cfg_j = jconfigs.get_config(request.param, smoke=True)
+    cfg_t = tconfigs.get_config(request.param, smoke=True)
     params_j = jmodel.init_params(jax.random.PRNGKey(0), cfg_j)
     params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
                                         "cpu")
@@ -38,8 +45,7 @@ def _tokens(seed, b, s, vocab):
 
 
 def test_config_matches_jax():
-    for arch, smoke in itertools.product(("llama3.2-1b", "zamba2-2.7b"),
-                                         (False, True)):
+    for arch, smoke in itertools.product(ARCHS, (False, True)):
         cj = jconfigs.get_config(arch, smoke=smoke)
         ct = tconfigs.get_config(arch, smoke=smoke)
         fields = {f.name for f in dataclasses.fields(ct)}
@@ -57,17 +63,38 @@ def test_config_matches_jax():
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconfigs.get_config("gemma_7b")
+        tconfigs.get_config("xlstm_350m")
 
 
 def test_init_params_tree_matches_jax(setup):
+    """init_params and init_cache give JAX's trees, leaf shapes and
+    dtypes."""
     cfg_j, cfg_t, params_j, _ = setup
     gen = torch.Generator().manual_seed(0)
-    mine = bridge.params_to_numpy(tmodel.init_params(gen, cfg_t, "cpu"))
-    theirs = jax.tree.map(np.asarray, params_j)
-    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
-    for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
-        assert a.shape == b.shape and a.dtype == b.dtype
+    mine_p = bridge.params_to_numpy(tmodel.init_params(gen, cfg_t, "cpu"))
+    mine_c = bridge.params_to_numpy(
+        tmodel.init_cache(cfg_t, 2, 24, device="cpu"))
+    for mine, theirs in ((mine_p, params_j),
+                         (mine_c, jmodel.init_cache(cfg_j, 2, 24))):
+        theirs = jax.tree.map(np.asarray, theirs)
+        assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+        for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_post_norm_and_head_leaves_and_bridge_round_trip(setup):
+    """The post-norm leaves ``post_norm`` and ``post_mlp_norm`` are there
+    exactly where a layer has post-norms (gemma2), the ``head`` exactly
+    where the embeddings are untied (deepseek-coder), and a bridged JAX
+    tree comes back bit for bit."""
+    _, cfg_t, params_j, params_t = setup
+    slot = params_t["groups"][0]["slots"][0]
+    post = any(s.post_norms for g in cfg_t.groups for s in g.pattern)
+    assert ("post_norm" in slot and "post_mlp_norm" in slot) == post
+    assert ("head" in params_t) == (not cfg_t.tie_embeddings)
+    back = bridge.params_to_numpy(params_t)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params_j)):
+        np.testing.assert_array_equal(a, np.asarray(b))
 
 
 def test_forward_matches_jax(setup):
@@ -260,7 +287,7 @@ def test_pure_mlp_layers_match_jax():
 
 @pytest.mark.parametrize("spec", [
     dict(kind="mla"), dict(kind="mlstm", mlp="none"), dict(kind="slstm"),
-    dict(kind="cross_attn"), dict(mlp="moe"), dict(post_norms=True)])
+    dict(kind="cross_attn"), dict(mlp="moe")])
 def test_unported_layers_raise(spec):
     from repro_torch.models import blocks
     from repro_torch.models.config import LayerSpec
@@ -273,7 +300,7 @@ def test_unported_layers_raise(spec):
 # the optimized configs: fused QKV and gate/up projections
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_optimized_config_matches_jax(arch):
     from repro.configs.optimized import optimized_config as jopt_config
     from repro_torch.configs.optimized import optimized_config
@@ -282,7 +309,7 @@ def test_optimized_config_matches_jax(arch):
                  "optimizer", "d_model", "num_layers"):
         assert getattr(ct, name) == getattr(cj, name), name
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        optimized_config("gemma-7b")
+        optimized_config("xlstm-350m")
 
 
 def test_fused_qkv_matches_unfused():
@@ -319,7 +346,7 @@ def test_fused_glu_matches_unfused():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_optimized_smoke_forward_and_decode_match_jax(arch):
     """The optimized overrides on each smoke config: the param trees
     (``wqkv``, ``wgu``) and the training forward's, prefill's and a decode
@@ -345,6 +372,86 @@ def test_optimized_smoke_forward_and_decode_match_jax(arch):
         cfg_t.fuse_qkv
     b, s = 2, 12
     toks = _tokens(7, b, s + 1, cfg_t.vocab_size)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks[:, :-1]))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks[:, :-1]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    cache_j = jmodel.init_cache(cfg_j, b, s + 4)
+    cache_t = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    pre_j, cache_j = jmodel.prefill(params_j, cfg_j,
+                                    jnp.asarray(toks[:, :-1]), cache_j)
+    pre_t, cache_t = tmodel.prefill(params_t, cfg_t,
+                                    torch.from_numpy(toks[:, :-1]), cache_t)
+    np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j), **LOGIT_TOL)
+    pos = np.full((b,), s, np.int32)
+    dec_j, _ = jmodel.decode_step(params_j, cfg_j, jnp.asarray(toks[:, -1:]),
+                                  cache_j, jnp.asarray(pos))
+    dec_t, _ = tmodel.decode_step(params_t, cfg_t,
+                                  torch.from_numpy(toks[:, -1:]), cache_t,
+                                  torch.from_numpy(pos))
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), **LOGIT_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the dense attention family: the gemma2 window and qk_norm
+# ---------------------------------------------------------------------------
+
+def test_gemma2_local_window_bites():
+    """The gemma2 smoke model's local layers have a window of 8, shorter
+    than the 24-token sequence: the port matches JAX there, and the same
+    params without the window give other logits (the mask is live)."""
+    cfg_j = jconfigs.get_config("gemma2-27b", smoke=True)
+    cfg_t = tconfigs.get_config("gemma2-27b", smoke=True)
+    windows = [s.window for g in cfg_t.groups for s in g.pattern]
+    assert 0 < min(w for w in windows if w) < 24 and 0 in windows
+    params_j = jmodel.init_params(jax.random.PRNGKey(4), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    toks = _tokens(14, 2, 24, cfg_t.vocab_size)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    unwindowed = dataclasses.replace(cfg_t, groups=tuple(
+        dataclasses.replace(g, pattern=tuple(
+            dataclasses.replace(s, window=0) for s in g.pattern))
+        for g in cfg_t.groups))
+    other, _ = tmodel.forward(params_t, unwindowed, torch.from_numpy(toks))
+    assert np.abs(other.numpy()[:, 8:] - got.numpy()[:, 8:]).max() > 1e-3
+    np.testing.assert_allclose(other.numpy()[:, :8], got.numpy()[:, :8],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_qk_norm_matches_jax():
+    """qk_norm (an RMSNorm over head_dim on q and k before RoPE, leaves
+    ``q_norm`` and ``k_norm``), which no config turns on yet, on a smoke
+    llama with ``qk_norm=True`` set on both sides: the params tree, the
+    forward, prefill and decode logits."""
+    from repro.models.config import GroupSpec as JGroup
+    from repro.models.config import LayerSpec as JSpec
+    from repro_torch.models.config import GroupSpec, LayerSpec
+    cfg_j = dataclasses.replace(
+        jconfigs.get_config("llama3.2-1b", smoke=True),
+        groups=(JGroup(pattern=(JSpec(qk_norm=True),), repeat=2),))
+    cfg_t = dataclasses.replace(
+        tconfigs.get_config("llama3.2-1b", smoke=True),
+        groups=(GroupSpec(pattern=(LayerSpec(qk_norm=True),), repeat=2),))
+    params_j = jmodel.init_params(jax.random.PRNGKey(6), cfg_j)
+
+    def bump(path, a):  # nonzero q/k norm scales: a misplaced norm shows
+        key = jax.tree_util.keystr(path)
+        return a + 0.3 if "q_norm" in key or "k_norm" in key else a
+
+    params_j = jax.tree_util.tree_map_with_path(bump, params_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    mixer = params_t["groups"][0]["slots"][0]["mixer"]
+    assert mixer["q_norm"]["scale"].shape == (2, cfg_t.head_dim)
+    assert mixer["k_norm"]["scale"].shape == (2, cfg_t.head_dim)
+    mine = bridge.params_to_numpy(tmodel.init_params(
+        torch.Generator().manual_seed(0), cfg_t, "cpu"))
+    assert jax.tree.structure(mine) == jax.tree.structure(
+        jax.tree.map(np.asarray, params_j))
+    b, s = 2, 16
+    toks = _tokens(15, b, s + 1, cfg_t.vocab_size)
     want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks[:, :-1]))
     got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks[:, :-1]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
