@@ -9,7 +9,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ["gemma_7b", "gemma2_27b", "llama3_2_1b", "deepseek_coder_33b",
-         "zamba2_2_7b"]
+         "zamba2_2_7b", "xlstm_350m", "musicgen_medium"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 _ALIASES.update({
@@ -18,6 +18,8 @@ _ALIASES.update({
     "llama3.2-1b": "llama3_2_1b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "xlstm-350m": "xlstm_350m",
+    "musicgen-medium": "musicgen_medium",
 })
 
 

@@ -20,6 +20,9 @@ _OVERRIDES: dict[str, dict] = {
     "deepseek_coder_33b": dict(fuse_qkv=True, fuse_glu=True,
                                seq_parallel=True),
     "zamba2_2_7b": dict(fuse_glu=True),
+    "xlstm_350m": dict(),
+    "musicgen_medium": dict(remat="full", fuse_qkv=True, fuse_glu=True,
+                            seq_parallel=True),
 }
 
 

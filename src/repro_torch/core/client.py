@@ -372,9 +372,16 @@ class Cluster:
         return self.runtime.observe()
 
     def trace_analysis(self):
-        """The reference builds a ``TraceAnalysis`` from the live event
-        ring; the port has no copy of the tracing module yet."""
-        raise NotImplementedError("trace_analysis(): not ported yet")
+        """Build a :class:`repro_torch.core.tracing.TraceAnalysis` from the
+        live event ring.  Requires the cluster to have been built with
+        ``events=`` (and ``tracing=True`` for worker-side segments —
+        without it the spans carry server-side boundaries only)."""
+        from .tracing import TraceAnalysis
+        bus = self.events
+        if bus is None:
+            raise RuntimeError(
+                "trace_analysis() needs events= (and tracing=True)")
+        return TraceAnalysis.from_events(bus.since(-1))
 
     def run_result(self, gf: GraphFutures,
                    timed_out: bool = False) -> RunResult:

@@ -14,7 +14,9 @@ requires grad, as on the serving paths) the forward runs alone and saves
 nothing: the flash kernel then writes no log-sum-exp, and the rmsnorm
 kernel no rstd.  ``decode_attention`` has no backward; its kernel raises
 under autograd rather than return a detached result, as every kernel
-wrapper does when called directly.
+wrapper does when called directly.  ``mlstm`` is the quadratic xLSTM
+oracle, which no Pallas kernel computes: plain torch on either device,
+as the JAX package's ``ops.mlstm`` is its jnp oracle.
 """
 from __future__ import annotations
 
@@ -145,3 +147,11 @@ def mamba_chunk_scan(x, dt, a, b, c, d, *, chunk=256, h0=None):
     if x.device.type == "cpu":
         return ref.mamba_chunk_scan(x, dt, a, b, c, d, chunk=chunk, h0=h0)
     return _ssd.mamba_chunk_scan(x, dt, a, b, c, d, chunk=chunk, h0=h0)
+
+
+def mlstm(q, k, v, i_gate, f_gate, *, eps=1e-6, chunk=256):
+    # the chunked mLSTM runs through the model's own path
+    # (models/xlstm.py); the quadratic stabilised oracle has no kernel,
+    # on the card as on the CPU.  The JAX package's ops.mlstm likewise,
+    # with this argument list: ``chunk`` is accepted and unused there too
+    return ref.mlstm_chunkwise(q, k, v, i_gate, f_gate, eps=eps)

@@ -293,3 +293,31 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dd = (dyf * xf).sum((0, 1, 3))
     return (dx.to(x.dtype), ddt, da, db.to(x.dtype), dc.to(x.dtype), dd,
             None if h0 is None else g)
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    i_gate: torch.Tensor, f_gate: torch.Tensor, *,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """xLSTM mLSTM, fully quadratic stabilised reference (the oracle the
+    chunked model path of :mod:`repro_torch.models.xlstm` is held to; no
+    Pallas kernel computes it).
+
+    q,k,v: (B, S, NH, HD); i_gate,f_gate: (B, S, NH) pre-activations.
+    Returns (B, S, NH, HD) in v.dtype.  With D[t,u] = sum_{j=u+1..t}
+    log sigmoid(f_j) + i_u for u <= t and m_t = max_u D[t,u]:
+    y_t = sum_u (q_t.k_u / sqrt(HD)) e^{D[t,u] - m_t} v_u over
+    max(|sum_u (q_t.k_u / sqrt(HD)) e^{D[t,u] - m_t}|, e^{-m_t}) + eps."""
+    s, hd = q.shape[1], q.shape[-1]
+    logf = torch.nn.functional.logsigmoid(_f32(f_gate))       # (B,S,NH)
+    logf_cum = torch.cumsum(logf, dim=1)
+    dmat = (logf_cum[:, :, None] - logf_cum[:, None, :]
+            + _f32(i_gate)[:, None, :, :])                     # (B,S,S,NH)
+    tri = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    dmat = torch.where(tri[None, :, :, None], dmat, -torch.inf)
+    m = dmat.amax(dim=2, keepdim=True).clamp(min=-1e30)       # (B,S,1,NH)
+    dexp = torch.exp(dmat - m)
+    scores = torch.einsum("bsnh,bunh->bsun", _f32(q), _f32(k)) / hd ** 0.5
+    w = scores * dexp
+    norm = torch.maximum(w.sum(dim=2).abs(), torch.exp(-m[:, :, 0]))
+    y = torch.einsum("bsun,bunh->bsnh", w, _f32(v))
+    return (y / (norm[..., None] + eps)).to(v.dtype)

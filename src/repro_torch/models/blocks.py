@@ -19,9 +19,9 @@ kernels launch outside PyTorch's dispatcher, so the policy never sees
 them: they run again in the recomputation, as under ``"full"`` (and as
 ``checkpoint_dots`` recomputes a ``pallas_call``, which is not a dot).
 
-Ported: mixers ``attn`` and ``mamba2`` and pure-MLP layers (``kind="none"``),
-with ``mlp="glu"`` (gated or plain) or ``"none"``, and post-norms.  Not
-yet: ``mla``, ``mlstm``/``slstm``, ``cross_attn`` and MoE.
+Ported: mixers ``attn``, ``mamba2``, ``mlstm`` and ``slstm`` and pure-MLP
+layers (``kind="none"``), with ``mlp="glu"`` (gated or plain) or
+``"none"``, and post-norms.  Not yet: ``mla``, ``cross_attn`` and MoE.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, mamba2
+from repro_torch.models import attention, mamba2, xlstm
 from repro_torch.models.common import (rmsnorm, rmsnorm_init, tree_leaves,
                                        tree_map)
 from repro_torch.models.config import (GroupSpec, LayerSpec, ModelConfig,
@@ -42,7 +42,8 @@ from repro_torch.models.mlp import apply_mlp, init_mlp
 Params = Any
 
 
-_MIXER_INIT = {"attn": attention.init_attn, "mamba2": mamba2.init_mamba2}
+_MIXER_INIT = {"attn": attention.init_attn, "mamba2": mamba2.init_mamba2,
+               "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
 
 # remat="dots": the ops whose outputs the backward keeps (JAX's dots)
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -61,7 +62,9 @@ _REMAT = {
         create_selective_checkpoint_contexts, _save_dots)},
 }
 _CACHE_INIT = {"attn": attention.init_attn_cache,
-               "mamba2": mamba2.init_mamba_cache}
+               "mamba2": mamba2.init_mamba_cache,
+               "mlstm": xlstm.init_mlstm_cache,
+               "slstm": xlstm.init_slstm_cache}
 
 
 def _check_supported(spec: LayerSpec) -> None:
@@ -111,9 +114,15 @@ def apply_layer(params: Params, cfg: ModelConfig, spec: LayerSpec,
         if spec.kind == "attn":
             h, cache = attention.apply_attn(
                 params["mixer"], cfg, spec, h, ctx["positions"], cache)
-        else:
+        elif spec.kind == "mamba2":
             h, cache = mamba2.apply_mamba2(params["mixer"], cfg, spec, h,
                                            cache)
+        elif spec.kind == "mlstm":
+            h, cache = xlstm.apply_mlstm(params["mixer"], cfg, spec, h,
+                                         cache)
+        else:
+            h, cache = xlstm.apply_slstm(params["mixer"], cfg, spec, h,
+                                         cache)
         if spec.post_norms:
             h = rmsnorm(params["post_norm"], h, eps=cfg.norm_eps)
         x = x + h

@@ -3,8 +3,8 @@
 A model is a stack of *groups*; each group is a repeating *pattern* of layer
 specs with params stacked over the repeat axis.  The fields and defaults are
 those of :mod:`repro.models.config`; ``compute_dtype`` is replaced by
-:func:`dtype_of`, and ``param_count``/``active_param_count`` are not ported
-yet.
+:func:`dtype_of`.  ``param_count`` and ``active_param_count`` build the
+param tree on the ``meta`` device, so nothing is allocated.
 """
 from __future__ import annotations
 
@@ -123,6 +123,29 @@ class ModelConfig:
     @property
     def num_layers(self) -> int:
         return sum(len(g.pattern) * g.repeat for g in self.groups)
+
+    def _meta_params(self) -> list:
+        """(path, leaf) pairs of the param tree, built on the meta
+        device."""
+        from repro_torch.models import model as model_lib
+        from repro_torch.models.common import tree_paths
+        return tree_paths(model_lib.init_params(torch.Generator(), self,
+                                                "meta"))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once if tied)."""
+        return sum(leaf.numel() for _, leaf in self._meta_params())
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE counts top_k+shared experts only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        frac = 1.0 - (self.moe.top_k / self.moe.num_experts)
+        inactive = sum(int(leaf.numel() * frac)
+                       for path, leaf in self._meta_params()
+                       if "['experts']" in path)
+        return total - inactive
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

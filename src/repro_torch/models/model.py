@@ -1,4 +1,4 @@
-"""Top-level LM: embeddings -> layer groups -> final norm -> head.
+"""Top-level LM: embeddings -> layer groups -> final norm -> head(s).
 
 Exposes the execution paths of :mod:`repro.models.model`:
   * ``forward``      - training forward (full sequence, no cache)
@@ -9,9 +9,13 @@ Exposes the execution paths of :mod:`repro.models.model`:
 ``init_params`` and ``init_cache`` run on the CUDA card unless ``device``
 is given.  The cache is a list (one entry per group) of per-slot trees
 stacked over the repeat axis: attention slots hold ``k``/``v``, mamba2
-slots ``conv`` and the fp32 ``ssm`` state.  Caches are updated in place:
-``prefill`` and ``decode_step`` return the cache they were given.  Not ported yet: multi-codebook streams
-(musicgen) and image embeddings (VLM).
+slots ``conv`` and the fp32 ``ssm`` state, mLSTM slots the fp32 ``c``/``n``
+and sLSTM slots the fp32 ``h``/``c``/``n``/``m``.  Caches are updated in
+place: ``prefill`` and ``decode_step`` return the cache they were given.
+MusicGen-style multi-codebook streams (``num_codebooks`` K): tokens are
+(B,S,K), the embeddings (K,V,D) are summed over the codebooks, the head
+(K,D,V) gives (B,S,K,V) logits and the loss averages over the K streams.
+Not ported yet: image embeddings (VLM).
 """
 from __future__ import annotations
 
@@ -29,8 +33,6 @@ Params = Any
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_codebooks:
-        raise NotImplementedError("multi-codebook models: not ported yet")
     if cfg.vision_dim:
         raise NotImplementedError("image-embedding models: not ported yet")
 
@@ -41,15 +43,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     _check_supported(cfg)
     device = resolve(device)
     dt = dtype_of(cfg)
+    k = cfg.num_codebooks
+
+    def per_codebook(init):  # (K, ...) with K codebooks, else one
+        return torch.stack([init() for _ in range(k)]) if k else init()
+
     p = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
+        "embed": per_codebook(lambda: embed_init(
+            gen, cfg.vocab_size, cfg.d_model, dt, device)),
         "groups": [blocks.init_group(gen, cfg, g, device)
                    for g in cfg.groups],
         "final_norm": rmsnorm_init(cfg.d_model, dt, device),
     }
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, cfg.d_model, (cfg.vocab_size,), dt,
-                               device)
+        p["head"] = per_codebook(lambda: dense_init(
+            gen, cfg.d_model, (cfg.vocab_size,), dt, device))
     return p
 
 
@@ -64,7 +72,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
     _check_supported(cfg)
-    x = params["embed"][tokens]
+    if cfg.num_codebooks:
+        # tokens (B,S,K): the sum of the K codebooks' embeddings
+        book = torch.arange(cfg.num_codebooks, device=tokens.device)
+        x = params["embed"][book, tokens].sum(dim=2)
+    else:
+        x = params["embed"][tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -72,7 +85,11 @@ def _embed(params: Params, cfg: ModelConfig,
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # a plain matmul outside any kernel, as the JAX model leaves it to XLA
-    if "head" in params:
+    if cfg.num_codebooks:  # (B,S,K,V)
+        w = params["head"] if "head" in params else \
+            params["embed"].transpose(1, 2)                  # (K,D,V)
+        logits = torch.einsum("bsd,kdv->bskv", x, w)
+    elif "head" in params:
         logits = torch.matmul(x, params["head"])
     else:
         logits = torch.matmul(x, params["embed"].T)
@@ -100,7 +117,8 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> tuple[torch.Tensor, dict]:
-    """Training forward. tokens: (B,S). Returns (logits, aux)."""
+    """Training forward. tokens: (B,S) or (B,S,K). Returns (logits,
+    aux)."""
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens)
     ctx = {"positions": _positions(b, s, x.device)}
@@ -110,12 +128,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
 
 def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Training forward + mean token cross-entropy.  tokens, labels: (B,S).
+    """Training forward + mean token cross-entropy.  tokens, labels: (B,S),
+    or (B,S,K) with K codebooks (the mean runs over the streams too).
 
     As in the JAX model, only the logsumexp (over logits cast to
-    ``cfg.loss_dtype``) reads the full (B,S,V) logits; the gold logit is
-    the label's head row dotted with the final hidden state in fp32, not a
-    gather over the vocab axis."""
+    ``cfg.loss_dtype``) reads the full (B,S,V) or (B,S,K,V) logits; the
+    gold logit is the label's head row dotted with the final hidden state
+    in fp32, not a gather over the vocab axis."""
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens)
     ctx = {"positions": _positions(b, s, x.device)}
@@ -123,9 +142,16 @@ def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     logits = _head(params, cfg, x)
     lse = torch.logsumexp(logits.to(dtype_named(cfg.loss_dtype)),
                           dim=-1).float()
-    w = params["head"].T if "head" in params else params["embed"]  # (V,D)
-    rows = w[labels]                                             # (B,S,D)
-    gold = (x.float() * rows.float()).sum(-1)
+    if cfg.num_codebooks:
+        w = params["head"].transpose(1, 2) if "head" in params \
+            else params["embed"]                                 # (K,V,D)
+        book = torch.arange(cfg.num_codebooks, device=labels.device)
+        rows = w[book, labels]                                   # (B,S,K,D)
+        gold = (x.float()[:, :, None] * rows.float()).sum(-1)   # (B,S,K)
+    else:
+        w = params["head"].T if "head" in params else params["embed"]
+        rows = w[labels]                                         # (B,S,D)
+        gold = (x.float() * rows.float()).sum(-1)
     if cfg.final_softcap:
         gold = soft_cap(gold, cfg.final_softcap)
     return (lse - gold).mean(), _aux(x.device)
@@ -143,7 +169,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: list, pos: torch.Tensor) -> tuple[torch.Tensor, list]:
-    """tokens: (B,1); pos: (B,) absolute position of the token."""
+    """tokens: (B,1) or (B,1,K); pos: (B,) absolute position of the
+    token."""
     x = _embed(params, cfg, tokens)
     ctx = {"positions": pos[:, None]}
     x, cache = _run(params, cfg, x, ctx, cache)

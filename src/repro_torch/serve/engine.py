@@ -15,7 +15,8 @@ pool is byte-bounded (``memory_limit``), and with ``events=`` the engine
 publishes per-request ``request-enter``/``request-admit``/``request-exit``
 events, keyed by a caller-supplied ``tenant``, into the same structured
 feed the runtime's control-plane events ride
-(:mod:`repro_torch.core.events`).
+(:mod:`repro_torch.core.events`); ``tracing=True`` adds the worker-side
+stamps that the pool's ``trace_analysis()`` splits into segments.
 """
 from __future__ import annotations
 
@@ -92,13 +93,21 @@ class ServingEngine:
 
     ``device`` defaults to the CUDA card and raises if there is none.
     If the loop thread fails, every waiting request is released and
-    :meth:`stop` re-raises the error.
+    :meth:`stop` re-raises the error.  A multi-codebook config (musicgen)
+    is refused: requests carry one token stream, as in the JAX engine,
+    which cannot serve one either; such a model is served through
+    ``prefill`` and ``decode_step`` directly.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, max_batch: int = 8,
                  max_len: int = 256,
                  memory_limit: int | None = DEFAULT_MEMORY_LIMIT,
-                 events=None, device: torch.device | str | None = None):
+                 events=None, tracing: bool = False,
+                 device: torch.device | str | None = None):
+        if cfg.num_codebooks:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves one token stream a request, "
+                f"not {cfg.num_codebooks} codebooks")
         self.cfg = cfg
         self.params = params
         self.device = resolve(device)
@@ -140,7 +149,7 @@ class ServingEngine:
         self._cluster = Cluster(server="rsds", scheduler="ws",
                                 n_workers=1, runtime="thread",
                                 name="serving", memory_limit=memory_limit,
-                                events=events)
+                                events=events, tracing=tracing)
         self._thread = threading.Thread(target=self._loop, daemon=True)
 
     @property

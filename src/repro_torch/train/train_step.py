@@ -18,7 +18,7 @@ from repro_torch.train.optimizer import Optimizer
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy.  logits: (B,S,V)."""
+    """Mean token cross-entropy.  logits: (B,S,V) or (B,S,K,V)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]

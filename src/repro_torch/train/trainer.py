@@ -157,6 +157,10 @@ class MicrobatchCoordinator:
     The executors share the card's default stream, so their kernels
     serialize on it; the microbatch gradients and the reduce (a sum in
     list order) do not depend on which executor ran which microbatch.
+
+    ``events=`` and ``tracing=`` go to the pool's Cluster, whose
+    ``trace_analysis()`` then splits each task into the overhead
+    segments.
     """
 
     #: default byte bound on the coordinator's pool.  Microbatch tasks
@@ -169,7 +173,8 @@ class MicrobatchCoordinator:
                  slow_workers: dict[int, float] | None = None,
                  seed: int = 0,
                  memory_limit: int | None = DEFAULT_MEMORY_LIMIT,
-                 events=None, device: torch.device | str | None = None):
+                 events=None, tracing: bool = False,
+                 device: torch.device | str | None = None):
         self.cfg = cfg
         self.device = resolve(device)
         self.n_executors = n_executors
@@ -178,6 +183,7 @@ class MicrobatchCoordinator:
         self.slow = slow_workers or {}
         self.memory_limit = memory_limit
         self._events = events
+        self._tracing = tracing
         self.opt = make_optimizer(cfg.optimizer)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = tree_map(lambda p: p.requires_grad_(True),
@@ -201,7 +207,7 @@ class MicrobatchCoordinator:
                     name="microbatch", balance_interval=0.002,
                     timeout=120.0, autostart=False,
                     memory_limit=self.memory_limit,
-                    events=self._events)
+                    events=self._events, tracing=self._tracing)
         rt = c.runtime
         if self.slow:
             orig = rt._worker_loop

@@ -1,6 +1,8 @@
 """The port's ``MicrobatchCoordinator`` (a training step as one graph
 epoch on the copied task runtime) against the JAX package's, on the CPU
-with the smoke config: one step from the same (bridged) params on the
+with the smoke configs of llama3.2-1b and zamba2-2.7b (mamba2 layers on
+the SSD's plain versions, forward and backward, and a weight-shared
+attention slot): one step from the same (bridged) params on the
 same numpy batch agrees with JAX's coordinator and with the port's own
 full-batch step (tests/test_train_serve_ft.py:121-146, 5e-3); the step
 does not depend on the executor count or on an executor failing mid-step
@@ -27,9 +29,19 @@ from repro_torch.train.optimizer import make_optimizer  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.train.trainer import MicrobatchCoordinator  # noqa: E402
 
-CFG_J = jconfigs.get_config("llama3.2-1b", smoke=True)
-CFG_T = tconfigs.get_config("llama3.2-1b", smoke=True)
+ARCHS = ("llama3.2-1b", "zamba2-2.7b")
 STEP_TOL = dict(rtol=5e-3, atol=5e-3)   # tests/test_train_serve_ft.py:143-146
+# the straggler's delay a microbatch: several of the arch's smoke
+# microbatches on the CPU (zamba2's are the longer: the SSD's plain
+# versions are sequential over S)
+STRAGGLE = {"llama3.2-1b": 0.10, "zamba2-2.7b": 1.0}
+
+
+@pytest.fixture(params=ARCHS)
+def cfgs(request):
+    """(JAX config, port config) of the arch's smoke model."""
+    return (jconfigs.get_config(request.param, smoke=True),
+            tconfigs.get_config(request.param, smoke=True))
 
 
 def _leaves_np(tree):
@@ -42,7 +54,8 @@ def _set_params(mc, tree):
     mc.opt_state = mc.opt.init(mc.params)
 
 
-def test_step_matches_jax_coordinator_and_full_batch():
+def test_step_matches_jax_coordinator_and_full_batch(cfgs):
+    CFG_J, CFG_T = cfgs
     batch = SyntheticDataset(CFG_J, 8, 32).batch_at(0)
     jmc = JaxCoordinator(CFG_J, n_executors=3, n_microbatches=4)
     p0 = bridge.params_from_numpy(jax.tree.map(np.asarray, jmc.params),
@@ -77,7 +90,8 @@ def test_step_matches_jax_coordinator_and_full_batch():
         np.testing.assert_allclose(a, b, **STEP_TOL)
 
 
-def _one_step(n_executors, fail_worker=None, n_micro=4):
+def _one_step(cfgs, n_executors, fail_worker=None, n_micro=4):
+    CFG_J, CFG_T = cfgs
     mc = MicrobatchCoordinator(CFG_T, n_executors=n_executors,
                                n_microbatches=n_micro, device="cpu")
     try:
@@ -89,20 +103,21 @@ def _one_step(n_executors, fail_worker=None, n_micro=4):
     return r, [p.detach().clone() for p in tree_leaves(mc.params)]
 
 
-def test_step_is_bit_equal_across_executors_and_failure():
+def test_step_is_bit_equal_across_executors_and_failure(cfgs):
     """Each microbatch's gradient does not depend on the executor that ran
     it, and the reduce sums in list order: 3 executors, 1 executor and 4
     executors with one failed mid-step give the same bits."""
-    ref_r, ref = _one_step(3)
+    ref_r, ref = _one_step(cfgs, 3)
     for n, fail in ((1, None), (4, 2)):
-        r, got = _one_step(n, fail)
+        r, got = _one_step(cfgs, n, fail)
         assert r["loss"] == ref_r["loss"]
         assert all(torch.equal(a, b) for a, b in zip(ref, got)), (n, fail)
 
 
-def test_microbatch_survives_executor_failure():
+def test_microbatch_survives_executor_failure(cfgs):
     """tests/test_train_serve_ft.py::test_microbatch_survives_executor_failure;
     the failed executor stays dead and the next step runs on the rest."""
+    CFG_J, CFG_T = cfgs
     mc = MicrobatchCoordinator(CFG_T, n_executors=4, n_microbatches=8,
                                device="cpu")
     ds = SyntheticDataset(CFG_J, 8, 32)
@@ -118,10 +133,11 @@ def test_microbatch_survives_executor_failure():
     assert mc._cluster is None
 
 
-def test_step_graph_keeps_no_gradient_after_the_reduce():
+def test_step_graph_keeps_no_gradient_after_the_reduce(cfgs):
     """The pool's graph keeps a step's task closures until compaction, so
     after each step no microbatch gradient is alive; nor after a failed
     executor's run of a microbatch that ends after the reduce."""
+    CFG_J, CFG_T = cfgs
     n_micro = 2
     mc = MicrobatchCoordinator(CFG_T, n_executors=2, n_microbatches=n_micro,
                                device="cpu")
@@ -157,16 +173,19 @@ def test_step_graph_keeps_no_gradient_after_the_reduce():
     assert all(w() is None for w in made)
 
 
-def test_straggler_loses_microbatches_to_stealing():
-    """A 0.1 s-slow executor (tests/test_train_serve_ft.py::
-    test_straggler_mitigation_moves_work) runs fewer than its even share
+def test_straggler_loses_microbatches_to_stealing(cfgs):
+    """A slow executor (0.1 s a microbatch for llama, as in
+    tests/test_train_serve_ft.py::test_straggler_mitigation_moves_work;
+    ``STRAGGLE``) runs fewer than its even share
     of the 12 microbatches.  The straggler's own loop publishes no
     ``task-started``, so its count is the step's microbatches that started
     on no other executor; ``task-finished`` by executor must agree."""
+    CFG_J, CFG_T = cfgs
     n_micro, n_exec, slow = 12, 3, 0
+    delay = STRAGGLE[CFG_T.name.removesuffix("-smoke")]
     mc = MicrobatchCoordinator(CFG_T, n_executors=n_exec,
                                n_microbatches=n_micro,
-                               slow_workers={slow: 0.10}, events=True,
+                               slow_workers={slow: delay}, events=True,
                                device="cpu")
     ds = SyntheticDataset(CFG_J, n_micro, 32)
     try:

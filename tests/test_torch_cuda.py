@@ -780,3 +780,133 @@ def test_forward_loss_gradients_on_card_match_cpu(cuda):
     torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-4, atol=2e-4)
     for a, b in zip(g_gpu, g_cpu):
         assert float((a - b).norm() / b.norm()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# xlstm-350m and musicgen-medium: their kernel shapes (flash and decode at
+# head_dim 64 with G = 1, rmsnorm at d 1024, 1536 and 2048) and small
+# models of both families, kernel path against plain path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s", [(4, 2048), (8, 512)])
+def test_flash_kernels_at_musicgen_shapes(cuda, b, s):
+    """musicgen-medium's attention, 24/24 heads at head_dim 64 (G = 1),
+    bf16: its training shape and its 512-frame prefill, the forward with
+    its LSE and the backward against the plain versions."""
+    rng = np.random.default_rng(s)
+    q, k, v, do = _flash_bwd_inputs(rng, b, s, s, 24, 24, 64,
+                                    torch.bfloat16, cuda)
+    kw = dict(causal=True, scale=0.125)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_o, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    _close(o, want_o, torch.bfloat16)
+    _close(fa.flash_attention(q, k, v, **kw), want_o, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.bfloat16])
+    del want_o, want_lse
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(),
+                                   **FLASH_BWD_TOL[torch.bfloat16], msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_musicgen_shape(cuda, dtype):
+    """A musicgen-medium decode step: 8 slots over 1024 positions, 24/24
+    heads at head_dim 64, lengths from 1 to 1024; twice bit-equal."""
+    rng = np.random.default_rng(1024)
+    q = _randn(rng, (8, 1, 24, 64), dtype, cuda)
+    k = _randn(rng, (8, 1024, 24, 64), dtype, cuda)
+    v = _randn(rng, (8, 1024, 24, 64), dtype, cuda)
+    lengths = torch.tensor([1, 255, 256, 257, 513, 700, 1000, 1024],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(lengths=lengths, scale=0.125)
+    got = da.decode_attention(q, k, v, **kw)
+    assert torch.equal(got, da.decode_attention(q, k, v, **kw))
+    _close(got, ref.decode_attention(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("rows", [8, 512, 8192])
+@pytest.mark.parametrize("d", [1024, 1536, 2048])
+def test_rmsnorm_kernels_at_xlstm_and_musicgen_widths(cuda, rows, d):
+    """xlstm-350m's norms (d 1024, and its mLSTM inner norm at 2048) and
+    musicgen-medium's (1536), bf16, at a decode step's, a prefill's and
+    a training step's rows: the forward with and without rstd and the
+    backward against the plain versions."""
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(rows + d)
+    x = _randn(rng, (rows, d), torch.bfloat16, cuda)
+    scale = _randn(rng, (d,), torch.bfloat16, cuda) * 0.1
+    g = _randn(rng, (rows, d), torch.bfloat16, cuda)
+    y, rstd = rn.rmsnorm_fwd(x, scale)
+    y2, _ = rn.rmsnorm_fwd(x, scale, with_rstd=False)
+    assert torch.equal(y, y2)
+    _close(y, ref.rmsnorm(x, scale), torch.bfloat16)
+    dx, dscale = rn.rmsnorm_bwd(x, scale, rstd, g)
+    want_dx, want_ds = ref.rmsnorm_bwd(x, scale, g)
+    torch.testing.assert_close(dx.float(), want_dx.float(),
+                               **RMS_BWD_TOL[torch.bfloat16])
+    torch.testing.assert_close(dscale.float(), want_ds.float(),
+                               **RMS_BWD_TOL[torch.bfloat16])
+
+
+def _small(arch):
+    """A small fp32 model of ``arch``'s family at head dims the kernels
+    take: xlstm-350m's smoke config (no attention), musicgen-medium's with
+    head_dim 64."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch, smoke=True)
+    if cfg.num_codebooks:
+        cfg = dataclasses.replace(cfg, d_model=128, num_heads=2,
+                                  num_kv_heads=2, head_dim=64, d_ff=256)
+    return cfg
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "musicgen-medium"])
+def test_xlstm_and_musicgen_on_card_match_cpu(cuda, arch):
+    """Prefill (37 tokens: the mLSTM pads its last chunk) + one decode
+    step through the kernels against the CPU plain path, with every
+    norm on the rmsnorm kernel (and musicgen's attention on flash and
+    decode), and forward_loss's gradients likewise."""
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import model
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = _small(arch)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = tree_map(lambda a: a + 0.05 * torch.randn_like(a)
+                      if a.dim() == 1 else a, params)  # norm scales not 0
+    k = cfg.num_codebooks
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 38, k) if k else (2, 38)).astype(np.int32))
+    n_attn = sum(sum(s.kind == "attn" for s in g.pattern) * g.repeat
+                 for g in cfg.groups)
+    outs, launched = [], None
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        cache = model.init_cache(cfg, 2, 48, device=dev)
+        n = (fa.flash_attention.launches, da.decode_attention.launches,
+             rn.rmsnorm_fwd.launches)
+        pre, cache = model.prefill(p, cfg, toks[:, :-1].to(dev), cache)
+        dec, _ = model.decode_step(p, cfg, toks[:, -1:].to(dev), cache,
+                                   torch.full((2,), 37, dtype=torch.int32,
+                                              device=dev))
+        launched = (fa.flash_attention.launches - n[0],
+                    da.decode_attention.launches - n[1],
+                    rn.rmsnorm_fwd.launches - n[2])
+        p = tree_map(lambda a: a.requires_grad_(True), p)
+        loss, _ = model.forward_loss(p, cfg, toks[:, :-1].to(dev),
+                                     toks[:, 1:].to(dev))
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        outs.append((pre.cpu(), dec.cpu(), loss.detach().cpu(),
+                     [g.cpu() for g in grads]))
+    norms = 1 + sum(((s.kind != "none") + (s.mlp != "none")
+                     + (s.kind == "mlstm") + (s.kind == "slstm")) * g.repeat
+                    for g in cfg.groups for s in g.pattern)
+    assert launched == (n_attn, n_attn, 2 * norms)
+    (pre_c, dec_c, loss_c, g_c), (pre_g, dec_g, loss_g, g_g) = outs
+    torch.testing.assert_close(pre_g, pre_c, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(dec_g, dec_c, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(loss_g, loss_c, rtol=2e-4, atol=2e-4)
+    for a, b in zip(g_g, g_c):
+        assert float((a - b).norm() / b.norm()) < 1e-3

@@ -1,6 +1,8 @@
 """The port's models (llama3.2-1b, zamba2-2.7b, gemma-7b, gemma2-27b,
-deepseek-coder-33b) against the JAX models, on JAX-initialised params
-moved over by repro_torch.bridge (smoke configs, CPU)."""
+deepseek-coder-33b, musicgen-medium; xlstm-350m's are in
+tests/test_torch_xlstm.py) against the JAX models, on JAX-initialised
+params moved over by repro_torch.bridge (smoke configs, CPU); the configs,
+their optimized overrides and param counts of every ported arch."""
 import dataclasses
 import itertools
 
@@ -23,6 +25,8 @@ CACHE_TOL = dict(rtol=2e-5, atol=2e-5)
 ARCHS = ("llama3.2-1b", "zamba2-2.7b", "gemma-7b", "gemma2-27b",
          "deepseek-coder-33b")
 DENSE = ("gemma-7b", "gemma2-27b", "deepseek-coder-33b")
+NEW = ("xlstm-350m", "musicgen-medium")   # the xLSTM and codebook families
+UNPORTED = ("grok_1_314b", "deepseek_v3_671b", "llama3_2_vision_90b")
 
 
 # the dense archs: gemma-7b (head_dim 256 at full width; GeGLU, scaled
@@ -45,25 +49,38 @@ def _tokens(seed, b, s, vocab):
 
 
 def test_config_matches_jax():
-    for arch, smoke in itertools.product(ARCHS, (False, True)):
+    for arch, smoke in itertools.product(ARCHS + NEW, (False, True)):
         cj = jconfigs.get_config(arch, smoke=smoke)
         ct = tconfigs.get_config(arch, smoke=smoke)
         fields = {f.name for f in dataclasses.fields(ct)}
         assert fields <= {f.name for f in dataclasses.fields(cj)}
-        for name in fields - {"groups", "mamba"}:
+        for name in fields - {"groups", "mamba", "xlstm"}:
             assert getattr(ct, name) == getattr(cj, name), name
         assert dataclasses.asdict(ct)["groups"] == \
             dataclasses.asdict(cj)["groups"]
-        assert (ct.mamba is None) == (cj.mamba is None)
-        if ct.mamba is not None:
-            assert dataclasses.asdict(ct.mamba) == \
-                dataclasses.asdict(cj.mamba)
+        for sub in ("mamba", "xlstm"):
+            assert (getattr(ct, sub) is None) == (getattr(cj, sub) is None)
+            if getattr(ct, sub) is not None:
+                assert dataclasses.asdict(getattr(ct, sub)) == \
+                    dataclasses.asdict(getattr(cj, sub))
         assert ct.num_layers == cj.num_layers
 
 
-def test_unported_archs_raise():
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconfigs.get_config("xlstm_350m")
+        tconfigs.get_config(arch)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCHS + NEW)
+def test_param_counts_match_jax(arch, smoke):
+    """param_count and active_param_count (counted on the meta device)
+    equal the JAX package's, at the published and the smoke widths."""
+    cj = jconfigs.get_config(arch, smoke=smoke)
+    ct = tconfigs.get_config(arch, smoke=smoke)
+    assert ct.param_count() == cj.param_count()
+    assert ct.active_param_count() == cj.active_param_count()
 
 
 def test_init_params_tree_matches_jax(setup):
@@ -286,8 +303,7 @@ def test_pure_mlp_layers_match_jax():
 
 
 @pytest.mark.parametrize("spec", [
-    dict(kind="mla"), dict(kind="mlstm", mlp="none"), dict(kind="slstm"),
-    dict(kind="cross_attn"), dict(mlp="moe")])
+    dict(kind="mla"), dict(kind="cross_attn"), dict(mlp="moe")])
 def test_unported_layers_raise(spec):
     from repro_torch.models import blocks
     from repro_torch.models.config import LayerSpec
@@ -300,16 +316,20 @@ def test_unported_layers_raise(spec):
 # the optimized configs: fused QKV and gate/up projections
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW)
 def test_optimized_config_matches_jax(arch):
+    from repro.configs.optimized import _OVERRIDES as JAX_OVERRIDES
     from repro.configs.optimized import optimized_config as jopt_config
-    from repro_torch.configs.optimized import optimized_config
+    from repro_torch.configs.optimized import _OVERRIDES, optimized_config
     cj, ct = jopt_config(arch), optimized_config(arch)
     for name in ("fuse_qkv", "fuse_glu", "seq_parallel", "remat",
                  "optimizer", "d_model", "num_layers"):
         assert getattr(ct, name) == getattr(cj, name), name
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        optimized_config("xlstm-350m")
+    key = tconfigs.canonical(arch)
+    assert _OVERRIDES[key] == JAX_OVERRIDES[key]
+    for other in UNPORTED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            optimized_config(other)
 
 
 def test_fused_qkv_matches_unfused():
@@ -469,3 +489,192 @@ def test_qk_norm_matches_jax():
                                   torch.from_numpy(toks[:, -1:]), cache_t,
                                   torch.from_numpy(pos))
     np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), **LOGIT_TOL)
+
+
+# ---------------------------------------------------------------------------
+# musicgen-medium: multi-codebook streams (tokens (B,S,K), summed (K,V,D)
+# embeddings, an untied (K,D,V) head) over a plain GELU MLP
+# ---------------------------------------------------------------------------
+
+GRAD_REL_L2 = 1e-4          # tests/test_torch_train.py
+STEP_UPDATE_REL_L2 = 1e-3   # tests/test_torch_train.py
+OPT_KW = dict(lr=1e-2, warmup=3, decay_steps=10, weight_decay=0.1,
+              grad_clip=0.5)
+
+
+@pytest.fixture(scope="module")
+def msetup():
+    cfg_j = jconfigs.get_config("musicgen-medium", smoke=True)
+    cfg_t = tconfigs.get_config("musicgen-medium", smoke=True)
+    params_j = jmodel.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+def _codes(seed, b, s, cfg):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s, cfg.num_codebooks)).astype(np.int32)
+
+
+def _batch(toks):
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _requiring_grad(params_j):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda a: a.requires_grad_(True), bridge.params_from_numpy(
+        jax.tree.map(np.asarray, params_j), "cpu"))
+
+
+def test_musicgen_trees_match_jax(msetup):
+    """(K,V,D) embeddings and a (K,D,V) head, the rest of the tree as
+    JAX's; a bridged tree comes back bit for bit."""
+    cfg_j, cfg_t, params_j, params_t = msetup
+    k, v, d = cfg_t.num_codebooks, cfg_t.vocab_size, cfg_t.d_model
+    assert params_t["embed"].shape == (k, v, d)
+    assert params_t["head"].shape == (k, d, v)
+    mine = bridge.params_to_numpy(tmodel.init_params(
+        torch.Generator().manual_seed(0), cfg_t, "cpu"))
+    theirs = jax.tree.map(np.asarray, params_j)
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    for a, b in zip(jax.tree.leaves(bridge.params_to_numpy(params_t)),
+                    jax.tree.leaves(theirs)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_musicgen_forward_and_loss_match_jax(msetup):
+    cfg_j, cfg_t, params_j, params_t = msetup
+    toks = _codes(0, 2, 33, cfg_t)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks[:, :-1]))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks[:, :-1]))
+    assert got.shape == (2, 32, cfg_t.num_codebooks, cfg_t.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    b = _batch(toks)
+    want_l, _ = jmodel.forward_loss(params_j, cfg_j, jnp.asarray(b["tokens"]),
+                                    jnp.asarray(b["labels"]))
+    got_l, _ = tmodel.forward_loss(params_t, cfg_t,
+                                   torch.from_numpy(b["tokens"]),
+                                   torch.from_numpy(b["labels"]))
+    np.testing.assert_allclose(float(got_l), float(want_l), **LOGIT_TOL)
+    # the loss is the cross-entropy of the (B,S,K,V) logits
+    from repro_torch.train.train_step import cross_entropy
+    torch.testing.assert_close(got_l, cross_entropy(
+        got, torch.from_numpy(b["labels"])), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_musicgen_grads_match_jax(msetup, remat):
+    """forward_loss's gradients, every leaf within GRAD_REL_L2 of JAX's,
+    without remat and under musicgen-medium's own ("dots")."""
+    from repro.train import train_step as jstep
+    from repro_torch.train import train_step as tstep
+    cfg_j, cfg_t, params_j, _ = msetup
+    b = _batch(_codes(1, 2, 17, cfg_t))
+    (want_loss, _), want_g = jax.value_and_grad(
+        jstep.make_loss_fn(cfg_j), has_aux=True)(
+            params_j, {k: jnp.asarray(v) for k, v in b.items()})
+    (loss, _), grads = tstep.make_grad_fn(
+        dataclasses.replace(cfg_t, remat=remat))(
+            _requiring_grad(params_j),
+            {k: torch.from_numpy(v) for k, v in b.items()})
+    np.testing.assert_allclose(float(loss), float(want_loss), **LOGIT_TOL)
+    got = jax.tree.leaves(bridge.params_to_numpy(grads))
+    want = jax.tree.leaves(jax.tree.map(np.asarray, want_g))
+    assert len(got) == len(want)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert np.linalg.norm(a - w) / np.linalg.norm(w) < GRAD_REL_L2
+
+
+def test_musicgen_prefill_decode_match_jax_and_forward(msetup):
+    """prefill(t[:-1]) + one decode step of (B,1,K) tokens: logits and
+    caches against JAX, and the decode logits against the forward's last
+    position (tests/test_models.py:64-86)."""
+    cfg_j, cfg_t, params_j, params_t = msetup
+    b, s = 2, 32
+    toks = _codes(2, b, s, cfg_t)
+    cache_j = jmodel.init_cache(cfg_j, b, s + 4)
+    cache_t = tmodel.init_cache(cfg_t, b, s + 4, device="cpu")
+    pre_j, cache_j = jmodel.prefill(params_j, cfg_j,
+                                    jnp.asarray(toks[:, :-1]), cache_j)
+    pre_t, cache_t = tmodel.prefill(params_t, cfg_t,
+                                    torch.from_numpy(toks[:, :-1]), cache_t)
+    assert pre_t.shape == (b, 1, cfg_t.num_codebooks, cfg_t.vocab_size)
+    np.testing.assert_allclose(pre_t.numpy(), np.asarray(pre_j), **LOGIT_TOL)
+    pos = np.full((b,), s - 1, np.int32)
+    dec_j, cache_j = jmodel.decode_step(params_j, cfg_j,
+                                        jnp.asarray(toks[:, -1:]), cache_j,
+                                        jnp.asarray(pos))
+    dec_t, cache_t = tmodel.decode_step(params_t, cfg_t,
+                                        torch.from_numpy(toks[:, -1:]),
+                                        cache_t, torch.from_numpy(pos))
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), **LOGIT_TOL)
+    for a, w in zip(jax.tree.leaves(bridge.params_to_numpy(cache_t)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, cache_j))):
+        np.testing.assert_allclose(a, w, **CACHE_TOL)
+    full, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks))
+    np.testing.assert_allclose(dec_t[:, 0].numpy(), full[:, -1].numpy(),
+                               **LOGIT_TOL)
+
+
+def test_musicgen_train_step_matches_jax(msetup):
+    """One AdamW train step: loss, gradient norm, and each leaf's update
+    within STEP_UPDATE_REL_L2 of JAX's (tests/test_torch_train.py)."""
+    from repro.train import optimizer as jopt
+    from repro.train import train_step as jstep
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tstep
+    cfg_j, cfg_t, params_j, _ = msetup
+    b = _batch(_codes(3, 4, 17, cfg_t))
+    opt_j = jopt.make_optimizer("adamw", **OPT_KW)
+    opt_t = topt.make_optimizer("adamw", **OPT_KW)
+    pj, _, mj = jax.jit(jstep.make_train_step(cfg_j, opt_j))(
+        params_j, opt_j.init(params_j),
+        {k: jnp.asarray(v) for k, v in b.items()})
+    pt = _requiring_grad(params_j)
+    pt, _, mt = tstep.make_train_step(cfg_t, opt_t)(
+        pt, opt_t.init(pt), {k: torch.from_numpy(v) for k, v in b.items()})
+    np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                               **LOGIT_TOL)
+    np.testing.assert_allclose(float(mt["grad_norm"]),
+                               float(mj["grad_norm"]), rtol=1e-4)
+    for a, w, p0 in zip(jax.tree.leaves(bridge.params_to_numpy(pt)),
+                        jax.tree.leaves(pj), jax.tree.leaves(params_j)):
+        p0 = np.asarray(p0)
+        want = np.asarray(w) - p0
+        assert np.abs(want).max() > 0
+        assert np.linalg.norm((a - p0) - want) / np.linalg.norm(want) \
+            < STEP_UPDATE_REL_L2
+
+
+def test_musicgen_optimized_smoke_matches_jax():
+    """musicgen's optimized override (fused QKV and gate/up over a plain
+    MLP, where the GLU fusion does nothing; remat "full") on its smoke
+    config: the tree and the forward logits against JAX."""
+    from repro.configs.optimized import _OVERRIDES as JAX_OVERRIDES
+    over = JAX_OVERRIDES["musicgen_medium"]
+    cfg_j = dataclasses.replace(
+        jconfigs.get_config("musicgen-medium", smoke=True), **over)
+    cfg_t = dataclasses.replace(
+        tconfigs.get_config("musicgen-medium", smoke=True), **over)
+    params_j = jmodel.init_params(jax.random.PRNGKey(3), cfg_j)
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        "cpu")
+    slot = params_t["groups"][0]["slots"][0]
+    assert "wqkv" in slot["mixer"] and "wgu" not in slot["mlp"]
+    toks = _codes(4, 2, 12, cfg_t)
+    want, _ = jmodel.forward(params_j, cfg_j, jnp.asarray(toks))
+    got, _ = tmodel.forward(params_t, cfg_t, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
+def test_engine_refuses_codebook_configs(msetup):
+    """The engine serves one token stream a request (as the JAX engine,
+    which fails on a codebook config at ``int(req.prompt[-1])``)."""
+    from repro_torch.serve.engine import ServingEngine
+    _, cfg_t, _, params_t = msetup
+    with pytest.raises(NotImplementedError, match="codebooks"):
+        ServingEngine(cfg_t, params_t, device="cpu")
