@@ -31,13 +31,17 @@ slice does at its published widths with one and with all three of its
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (timed), the registers and spills of the main
    instantiations (the flash forward at head dim 256 in bf16 and fp32,
-   decode at (256, G) and (128, 7)), and the count of HGMMA (tensor-core)
+   decode at (256, G), (128, 7) and (128, 6)), and the count of HGMMA
+   (tensor-core)
    instructions in each bf16 flash and SSD kernel's SASS (the SSD
    backward's too).
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
-   attention at head dims 32, 64, 80, 128 and 256 and at G = 7 (fp32 2e-5,
-   bf16 2e-2; the dense family's prefills and decode steps as its layers
+   attention at head dims 32, 64, 80, 128 and 256 and at G = 7 and 6
+   (grok-1's 48/8 heads, with and without its softcap 30), flash also
+   non-causal at S = 1 and S = 512 queries against T = 2048 keys
+   (cross-attention) (fp32 2e-5, bf16 2e-2; the dense family's and
+   grok-1's prefills and decode steps as its layers
    call them, gemma2's window of 4096 at a 4608-token prefill and over
    8192 cached positions with lengths below, at and past it), the
    Mamba-2 SSD scan with ragged S and a split at h0 (fp32 2e-4, bf16 2e-2,
@@ -65,7 +69,12 @@ slice does at its published widths with one and with all three of its
    8 x 512-frame prefill and forward and backward at its training shape
    (4, 2048), decode over (8, 1024); rmsnorm at xlstm-350m's widths (1024,
    and 2048 in the mLSTM) and musicgen's (1536) at a decode step's,
-   a prefill's and the training step's rows.
+   a prefill's and the training step's rows; llama-3.2-vision's batched
+   8 x 512 self-attention prefill, decode over (8, 1024) at G = 8, and
+   its cross-attention flash (8, 512 or 1, 64, 8, 128) against 2048
+   image tokens; rmsnorm at grok-1's 6144, deepseek-v3's 7168, 1536 and
+   512, and the VLM's 8192 and 128 (cross-attention's q_norm and k_norm
+   at their rows).
 3. The serving slices, each at its published width in bf16 with random
    weights from a seeded generator, served through ``ServingEngine`` on
    its warm ``repro_torch.core`` Cluster with events on (16 requests in two
@@ -94,6 +103,33 @@ slice does at its published widths with one and with all three of its
    kernel-path logits against the plain path; the first and last
    sequence generated alone (row 0 of the batch, the other rows zero)
    equal to the batched run; the same profile.
+   Then the MoE, MLA and vision families, each at its published width
+   and ``param_count()`` asserted against the JAX package's:
+   * grok-1-314b at 4 of 64 layers (21.29e9 params; softmax top-2 over 8
+     experts, flash and decode at G = 6 with softcap 30) and
+     deepseek-v3-671b at 1 of 3 dense + 2 of 58 MoE layers (25.45e9
+     params; MLA in plain torch, naive as the engine runs it; sigmoid
+     top-8 over 256 experts + 1 shared, the router bias set nonzero from
+     the seed), served as above with each engine call's ``moe_dropped``
+     reported.  Kernel-vs-plain logits are checked in bf16, with the
+     share of router choices that differ and the gap with the kernel
+     path's choices pinned to the plain path's; deepseek-v3's
+     absorbed-vs-naive MLA is checked in fp32 on a model of
+     ``ABSORBED_CUT`` layers made first (``absorbed_parity``: in bf16
+     the choices that flip carry the gap past the limit), its bf16
+     figures reported.  A decode step's requests share the experts'
+     capacity, so the token check is a one-slot engine against
+     a one-row reference (equal), and how many of the 8-slot run's 16
+     requests equal their one-slot generation is reported, not checked;
+   * llama-3.2-vision-90b at 2 of 20 repeats (4 self + 1 cross) = 10 of
+     100 layers (10.66e9 params), which the engine refuses as the JAX
+     engine does, through ``prefill``/``decode_step`` (``run_vision_slice``):
+     8 prompts of 512 tokens with image embeddings (8, 2048, 7680) from
+     the seed, the gates set nonzero, 32 greedy steps; exact flash (self-
+     and cross-attention), decode and rmsnorm launches; the first and last
+     sequences alone equal to the batched run; kernel-path logits against
+     the plain path; other image embeddings must move the prefill logits
+     by at least ``IMAGE_MOVE_OF`` times LOGITS_REL_TOL.
    Every RMSNorm of every run goes through the rmsnorm kernel.  For each: the
    widths are asserted; every request finishes; every prefill and decode
    step went through its kernels (launch counters set to 0 just before the
@@ -156,7 +192,8 @@ slice does at its published widths with one and with all three of its
    ``flex_attention`` with the tanh cap as its score_mod, its error
    against the plain version given beside it) and the card's bound; the decode rows also give the host's n_split, and the
    rmsnorm rows the call that launches them (a decode step, a prefill, a
-   training step or a coordinator's microbatch), its norms per call at
+   training step or a coordinator's microbatch, or the VLM's
+   cross-attention norms), its norms per call at
    that width, its launches at that
    call and width as the wrapper counted them by (rows, d) in phase 3
    (asserted equal to the norms per call times the calls) and the launch
@@ -218,6 +255,19 @@ FLASH_SWEEP_DENSE = [(*FLASH_SWEEP[0][:4], 256, *FLASH_SWEEP[0][5:]),
                      (*FLASH_SWEEP[4][:4], 256, *FLASH_SWEEP[4][5:]),
                      (1, 300, 14, 2, 128, True, None, None),
                      (2, 200, 7, 1, 256, True, 64, 50.0)]
+# G = 6 at head dim 128 with grok-1's softcap 30 (48/8 heads), causal;
+# and cross-attention's non-causal queries against T = CROSS_T image
+# tokens, S = 1 (a decode step) and S = 512 (a prefill), both in
+# _check_flash's (b, s, h, kv, hd, causal, window, cap) form with its t
+FLASH_SWEEP_G6 = [(1, 300, 48, 8, 128, True, None, 30.0),
+                  (2, 200, 12, 2, 128, True, 64, 30.0)]
+CROSS_T = 2048           # llama-3.2-vision's image tokens
+# other image embeddings must move the VLM's prefill logits by at least
+# this many times LOGITS_REL_TOL (rel. L2), so that a cross-attention
+# output lost or read from the wrong image fails the kernel-vs-plain check
+IMAGE_MOVE_OF = 4
+FLASH_SWEEP_CROSS = [(2, 1, 16, 2, 128, False, None, None),
+                     (1, 512, 16, 2, 128, False, None, None)]
 PREFILL_LENS = (32, 64, 128, 256, 512, 200)
 DECODE_SWEEP = [  # (b, t, h, kv, hd, window, cap): tests/test_kernels.py
     (2, 256, 8, 2, 64, None, None),
@@ -234,6 +284,10 @@ DECODE_SWEEP_DENSE = [
     (2, 520, 16, 2, 256, 64, None),
     (3, 300, 7, 1, 128, None, 50.0),
     (2, 384, 56, 8, 128, 64, None),
+    # G = 6 (grok-1's 48/8 heads) at head dim 128, with and without its
+    # softcap 30; (256, 6) is tests/test_torch_cuda.py's
+    (3, 300, 12, 2, 128, None, 30.0),
+    (2, 520, 48, 8, 128, 64, None),
 ]
 SSD_SWEEP = [  # (b, s, nh, hd, ns): tests/test_kernels.py, plus ragged S
     (2, 128, 3, 32, 16),
@@ -248,8 +302,13 @@ XLSTM_ARCH, MUSIC_ARCH = "xlstm-350m", "musicgen-medium"
 # runs its sLSTM layers' loop over every prompt token
 FLOOD = {XLSTM_ARCH: 24}
 MUSIC_PROMPT = 512       # frames a musicgen prompt, each of 4 codebooks
+GROK, DSV3, VISION = "grok-1-314b", "deepseek-v3-671b", "llama-3.2-vision-90b"
+MOE_ARCHS = (GROK, DSV3)
+VISION_PROMPT = 512      # tokens a vision prompt, with its 2048 image tokens
 # the JAX package's counts (repro.models.config.ModelConfig.param_count)
-PUBLISHED_PARAMS = {XLSTM_ARCH: 476_597_248, MUSIC_ARCH: 1_384_269_312}
+PUBLISHED_PARAMS = {XLSTM_ARCH: 476_597_248, MUSIC_ARCH: 1_384_269_312,
+                    GROK: 316_489_340_928, DSV3: 671_026_419_200,
+                    VISION: 87_645_828_116}
 # gemma2-27b's long-context check: one prompt of LONG_PROMPT tokens (past
 # the local layers' 4096 window) into a cache of LONG_CACHE positions,
 # then one decode step, at full width and LONG_LAYERS layers (2 of the 23
@@ -291,6 +350,14 @@ PARITY_DTYPE = {"llama3.2-1b": "bfloat16", "zamba2-2.7b": "float32",
 # past LOGITS_REL_TOL (its bf16 gap is printed beside), in the JAX
 # package's model as in the port's (the same test)
 LOGITS_DTYPE = {XLSTM_ARCH: "float32"}
+# deepseek-v3's absorbed-vs-naive MLA logits are checked in fp32, on a
+# model of its own at these layers (``absorbed_parity``; ~56 GB): in bf16
+# the two forms round apart and the router choices that flip with the
+# rounding take the gap past LOGITS_REL_TOL (on an H100: rel. L2 0.04221
+# / 0.06963 at the prefill / decode step, 2.0% / 3.9% of the choices
+# differing); the bf16 figures are printed beside the gap with the
+# choices pinned (PERF.md section 6)
+ABSORBED_CUT = {DSV3: (1, 1)}
 RESTART_TOL = 1e-6       # tests/test_train_serve_ft.py:83-103
 XTRAIN_KEY, MTRAIN_KEY = f"{XLSTM_ARCH}-train", f"{MUSIC_ARCH}-train"
 COORD_KEY = "llama3.2-1b-coordinator"
@@ -334,7 +401,22 @@ RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
              (MUSIC_ARCH, "prefill", MAX_BATCH * MUSIC_PROMPT, (1536,)),
              (MTRAIN_KEY, "training step", TRAIN_BATCH * TRAIN_SEQ,
               (1536,)),
-             (ZCOORD_KEY, "microbatch", TRAIN_SEQ, (2560, 5120))]
+             (ZCOORD_KEY, "microbatch", TRAIN_SEQ, (2560, 5120)),
+             (GROK, "decode step", MAX_BATCH, (6144,)),
+             (GROK, "prefill", 512, (6144,)),
+             # d, and MLA's q_norm and kv_norm at the latent ranks
+             (DSV3, "decode step", MAX_BATCH, (7168, 1536, 512)),
+             (DSV3, "prefill", 512, (7168, 1536, 512)),
+             # the VLM's batched prefill of 8 x 512 tokens and its decode
+             # steps at d; its cross-attention layers' q_norm over head_dim
+             # (a row a query head) and, at the prefill only, k_norm (a
+             # row an image token's kv head)
+             (VISION, "decode step", MAX_BATCH, (8192,)),
+             (VISION, "prefill", MAX_BATCH * VISION_PROMPT, (8192,)),
+             (VISION, "decode step q_norm", MAX_BATCH * 64, (128,)),
+             (VISION, "prefill q_norm", MAX_BATCH * VISION_PROMPT * 64,
+              (128,)),
+             (VISION, "prefill k_norm", MAX_BATCH * CROSS_T * 8, (128,))]
 # rows of the serving forward's sweep in --rmsnorm-times: a decode step,
 # prompts of 32-512 tokens, and on to the training step's, across the
 # forward's change of plan (kernels/rmsnorm.py FEW_ELEMS: past 409, 819
@@ -363,6 +445,16 @@ SLICES = [
     # served through prefill/decode_step (run_codebook_slice)
     (MUSIC_ARCH, (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", None),
      None),
+    # 4 of 64 layers (21.29e9 params, 42.6 GB; full depth 316e9)
+    (GROK, (64, 6144, 48, 8, 128, 32768, 131072, "bfloat16", None), 4),
+    # 1 of its 3 dense layers and 2 of its 58 MoE layers (25.45e9 params,
+    # 50.9 GB; full depth 671e9)
+    (DSV3, (61, 7168, 128, 128, 128, 18432, 129280, "bfloat16", None),
+     (1, 2)),
+    # 2 of 20 repeats of (4 self-attention + 1 cross-attention) = 10 of 100
+    # layers (10.66e9 params, 21.3 GB); through prefill/decode_step
+    # (run_vision_slice)
+    (VISION, (100, 8192, 64, 8, 128, 28672, 128256, "bfloat16", None), 10),
 ]
 # each dense arch's attention as its layers call the kernels: (heads, kv
 # heads, head dim, window, softcap, scale); gemma2's local layers' window
@@ -371,6 +463,7 @@ DENSE_ATTN = {
     "gemma2-27b": (32, 16, 128, 4096, 50.0, 1 / 12),
     "gemma-7b": (16, 16, 256, None, None, 1 / 16),
     "deepseek-coder-33b": (56, 8, 128, None, None, 128 ** -0.5),
+    GROK: (48, 8, 128, None, 30.0, 128 ** -0.5),     # G = 6
 }
 
 
@@ -408,25 +501,28 @@ def _ssd_inputs(rng, b, s, nh, hd, ns, dtype):
             _randn(rng, (nh,), torch.float32))
 
 
-def _check_flash(rng, dtype, cases, out, key, keep=max(PREFILL_LENS)):
+def _check_flash(rng, dtype, cases, out, key, keep=max(PREFILL_LENS),
+                 t=None):
     """Each case (b, s, h, kv, hd, causal, window, cap[, scale]; the scale
-    1 / sqrt(hd) unless given) within ``tol`` of the plain version; with a
+    1 / sqrt(hd) unless given) within ``tol`` of the plain version, its
+    keys and values as long as its queries unless ``t`` is given; with a
     ``key``, the case of S = ``keep`` is kept for the timing phase."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     tol = TOL[str(dtype).removeprefix("torch.")]
     for b, s, h, kv, hd, causal, window, cap, *scale in cases:
         q = _randn(rng, (b, s, h, hd), dtype)
-        k = _randn(rng, (b, s, kv, hd), dtype)
-        v = _randn(rng, (b, s, kv, hd), dtype)
+        k = _randn(rng, (b, t or s, kv, hd), dtype)
+        v = _randn(rng, (b, t or s, kv, hd), dtype)
         kw = dict(causal=causal, window=window, softcap=cap,
                   scale=scale[0] if scale else 1.0 / np.sqrt(hd))
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = _check_close(f"flash_attention {dtype} {(b, s, h, kv, hd)}",
                            got, ref.flash_attention(q, k, v, **kw), tol)
-        print(f"flash_attention {str(dtype)[6:]:8s} b={b} s={s} h={h} "
-              f"kv={kv} hd={hd} causal={causal} window={window} "
+        print(f"flash_attention {str(dtype)[6:]:8s} b={b} s={s} "
+              f"t={t or s} h={h} kv={kv} hd={hd} causal={causal} "
+              f"window={window} "
               f"cap={cap} scale={kw['scale']:.5g}: max abs err {err:.3e} "
               f"(tol {tol})")
         if key and s == keep:
@@ -742,6 +838,8 @@ def check_kernels():
         bf16 = dtype == torch.bfloat16
         _check_flash(rng, dtype, FLASH_SWEEP, out, None)
         _check_flash(rng, dtype, FLASH_SWEEP_DENSE, out, None)
+        _check_flash(rng, dtype, FLASH_SWEEP_G6, out, None)
+        _check_flash(rng, dtype, FLASH_SWEEP_CROSS, out, None, t=CROSS_T)
         _check_decode(rng, dtype, DECODE_SWEEP, out, None)
         _check_decode(rng, dtype, DECODE_SWEEP_DENSE, out, None)
         _check_ssd(rng, dtype, SSD_SWEEP, out, None)
@@ -839,6 +937,21 @@ def check_kernels():
                                     None)], out, "decode:" + MUSIC_ARCH)
         _check_flash_bwd(rng, dtype, [(TRAIN_BATCH, TRAIN_SEQ, 24, 24, 64,
                                        True, None, None)], out, MTRAIN_KEY)
+        # llama-3.2-vision (64/8 heads, G = 8, hd 128): the self-attention
+        # layers' batched 8 x 512 prefill and decode over 1024 positions;
+        # the cross-attention layers' non-causal flash against the 2048
+        # image tokens, at the prefill's 512 queries and a decode step's 1
+        # (grok-1's G = 6 shapes are DENSE_ATTN's)
+        _check_flash(rng, dtype, [(MAX_BATCH, VISION_PROMPT, 64, 8, 128,
+                                   True, None, None)], out,
+                     f"flash:{VISION}:self prefill", keep=VISION_PROMPT)
+        _check_decode(rng, dtype, [(MAX_BATCH, MAX_LEN, 64, 8, 128, None,
+                                    None)], out, "decode:" + VISION)
+        for call, s in (("cross prefill", VISION_PROMPT),
+                        ("cross decode step", 1)):
+            _check_flash(rng, dtype, [(MAX_BATCH, s, 64, 8, 128, False, None,
+                                       None)], out, f"flash:{VISION}:{call}",
+                         keep=s, t=CROSS_T)
     return out
 
 
@@ -847,14 +960,16 @@ def _n_layers(cfg, kind):
                for g in cfg.groups)
 
 
-def greedy_reference(cfg, params, prompt):
+def greedy_reference(cfg, params, prompt, batch=MAX_BATCH):
     """One request's greedy tokens through ``prefill``/``decode_step``.
 
     The prompt is padded as the engine pads it and decoded in a batch of
-    ``MAX_BATCH`` rows (the request in row 0, the others idle), so every
-    bf16 matmul sees the engine's shapes and rounds alike; the request's
-    row is computed independently of the others, so any slot mix-up in the
-    engine shows as different tokens.
+    ``batch`` rows (the request in row 0, the others idle), so every
+    bf16 matmul sees the engine's shapes and rounds alike; without MoE the
+    request's row is computed independently of the others, so any slot
+    mix-up in the engine shows as different tokens.  Under an MoE's
+    capacity the rows are not independent (idle rows take experts' slots),
+    so the MoE slices hold a one-slot engine to ``batch=1``.
     """
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_map
@@ -865,19 +980,37 @@ def greedy_reference(cfg, params, prompt):
     one = model_lib.init_cache(cfg, 1, MAX_LEN, device="cuda")
     _, one = model_lib.prefill(params, cfg, torch.from_numpy(toks).cuda(),
                                one)
-    cache = model_lib.init_cache(cfg, MAX_BATCH, MAX_LEN, device="cuda")
+    cache = model_lib.init_cache(cfg, batch, MAX_LEN, device="cuda")
     tree_map(lambda g, p: g[:, 0].copy_(p[:, 0]), cache, one)
     cur, pos, out = int(prompt[-1]), s - 1, []
     for _ in range(NEW_TOKENS):
-        tokens = torch.zeros((MAX_BATCH, 1), dtype=torch.int32, device="cuda")
+        tokens = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
         tokens[0, 0] = cur
-        p = torch.zeros((MAX_BATCH,), dtype=torch.int32, device="cuda")
+        p = torch.zeros((batch,), dtype=torch.int32, device="cuda")
         p[0] = pos
         logits, cache = model_lib.decode_step(params, cfg, tokens, cache, p)
         cur = int(torch.argmax(logits[0, 0]))
         out.append(cur)
         pos += 1
     return out
+
+
+def solo_generations(cfg, params, prompts):
+    """Each prompt's tokens from a one-slot engine (``max_batch=1``), so
+    no request shares a decode step (or an MoE's capacity) with another;
+    every request is submitted before the engine starts."""
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=1, max_len=MAX_LEN,
+                        device="cuda")
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    eng.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(600):
+                raise AssertionError(f"solo request {r.rid} did not finish")
+    finally:
+        eng.stop()
+    return [r.out_tokens for r in reqs]
 
 
 PLAIN_OPS = ("flash_attention", "decode_attention", "mamba_chunk_scan",
@@ -892,41 +1025,125 @@ def _token_array(rng, cfg, *shape):
                         (*shape, k) if k else shape).astype(np.int32)
 
 
-def compare_plain_path(cfg, params, plain_ops=PLAIN_OPS, check=True):
-    """Logits of one prefill + one decode step, kernels vs plain path (the
-    ops of ``plain_ops`` swapped for their plain versions); with
-    ``check``, each rel. L2 error must be within LOGITS_REL_TOL."""
-    from repro_torch.kernels import ops, ref
+@contextlib.contextmanager
+def _routes(record, replay=None):
+    """Append each MoE router call's choices (``ref.topk_gating``'s idx)
+    to ``record``; with ``replay`` (another run's record), make the
+    choices of that run instead, in call order, each weighted from this
+    run's own logits as ``topk_gating`` weights them."""
+    from repro_torch.kernels import ref
+    real = ref.topk_gating
+    pinned = None if replay is None else iter(replay)
+
+    def topk_gating(logits, k, *, router="softmax", bias=None):
+        if pinned is None:
+            w, idx = real(logits, k, router=router, bias=bias)
+        else:
+            idx = next(pinned)
+            g = torch.gather(logits, -1, idx).float()
+            if router == "sigmoid":
+                w = torch.sigmoid(g)
+                w = w / (w.sum(-1, keepdim=True) + 1e-20)
+            else:
+                w = torch.softmax(g, dim=-1)
+        record.append(idx)
+        return w, idx
+
+    with mock.patch.object(ref, "topk_gating", topk_gating):
+        yield record
+
+
+def _choices_differ(a, b):
+    """The share of one run's (token, k) router choices that the other run
+    did not make, over the router calls ``a`` and ``b`` (in call order);
+    None without MoE."""
+    if not a:
+        return None
+    diff = n = 0
+    for x, y in zip(a, b, strict=True):
+        hit = (x[..., :, None] == y[..., None, :]).any(-1)
+        diff += int((~hit).sum())
+        n += hit.numel()
+    return diff / n
+
+
+def _prefill_decode(cfg, params, image_embeds=None, mla_absorbed=False,
+                    pin=None):
+    """Logits (fp32) of one prefill of 8 x 128 tokens and one decode step,
+    and each one's router choices; with ``pin`` (another such result),
+    its router choices are made again (``_routes``)."""
     from repro_torch.models import model as model_lib
     rng = np.random.default_rng(1)
     b, s = 8, 128
     toks = torch.from_numpy(_token_array(rng, cfg, b, s + 1)).cuda()
     pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    cache = model_lib.init_cache(cfg, b, 256, device="cuda")
+    with _routes([], pin and pin[0][1]) as r_pre:
+        pre, cache = model_lib.prefill(params, cfg, toks[:, :s], cache,
+                                       image_embeds, mla_absorbed)
+    with _routes([], pin and pin[1][1]) as r_dec:
+        dec, _ = model_lib.decode_step(params, cfg, toks[:, s:], cache, pos,
+                                       mla_absorbed)
+    return (pre.float(), r_pre), (dec.float(), r_dec)
 
-    def run():
-        cache = model_lib.init_cache(cfg, b, 256, device="cuda")
-        pre, cache = model_lib.prefill(params, cfg, toks[:, :s], cache)
-        dec, _ = model_lib.decode_step(params, cfg, toks[:, s:], cache, pos)
-        return pre.float(), dec.float()
 
-    kernel = run()
-    with contextlib.ExitStack() as stack:
-        for op in plain_ops:
-            stack.enter_context(mock.patch.object(ops, op, getattr(ref, op)))
-        plain = run()
+def _logits_gap(a, b, check, what, pinned=None):
+    """Rel. L2, max abs error and argmax agreement of ``a`` against ``b``
+    (each ``_prefill_decode``'s result), with the share of router choices
+    that differ where the model has MoE, and ``pinned``'s rel. L2 against
+    ``b`` (``a``'s run again with ``b``'s router choices: the gap that
+    rounding leaves without the choices that flip); with ``check``, each
+    rel. L2 must be within LOGITS_REL_TOL."""
     res = {}
-    for name, a, w in zip(("prefill", "decode"), kernel, plain):
-        rel = float((a - w).norm() / w.norm())
-        agree = float((a.argmax(-1) == w.argmax(-1)).float().mean())
-        res[name] = {"max_abs_err": float((a - w).abs().max()),
-                     "rel_l2_err": rel, "token_agreement": agree}
+    for i, (name, (x, rx), (w, rw)) in enumerate(zip(("prefill", "decode"),
+                                                      a, b)):
+        rel = _rel_l2(x, w)
+        res[name] = {"max_abs_err": float((x - w).abs().max()),
+                     "rel_l2_err": rel, "token_agreement": float(
+                         (x.argmax(-1) == w.argmax(-1)).float().mean())}
+        differ = _choices_differ(rx, rw)
+        if differ is not None:
+            res[name]["router_choices_differ"] = differ
+        if pinned is not None:
+            res[name]["rel_l2_err_routes_pinned"] = _rel_l2(pinned[i][0], w)
         if check and not rel <= LOGITS_REL_TOL:
-            raise AssertionError(f"{name} logits, kernel vs plain path: "
-                                 f"rel L2 err {rel} > {LOGITS_REL_TOL}")
+            raise AssertionError(f"{name} logits, {what}: rel L2 err {rel} "
+                                 f"> {LOGITS_REL_TOL} ({res[name]})")
     return res
 
 
-def logits_parity(cfg, params):
+def compare_plain_path(cfg, params, plain_ops=PLAIN_OPS, check=True,
+                       image_embeds=None):
+    """Logits of one prefill + one decode step, kernels vs plain path (the
+    ops of ``plain_ops`` swapped for their plain versions); with
+    ``check``, each rel. L2 error must be within LOGITS_REL_TOL.  An MoE
+    model's results carry the share of router choices that differ and the
+    gap with the kernel path's choices pinned to the plain path's."""
+    from repro_torch.kernels import ops, ref
+    kernel = _prefill_decode(cfg, params, image_embeds)
+    with contextlib.ExitStack() as stack:
+        for op in plain_ops:
+            stack.enter_context(mock.patch.object(ops, op, getattr(ref, op)))
+        plain = _prefill_decode(cfg, params, image_embeds)
+    pinned = (_prefill_decode(cfg, params, image_embeds, pin=plain)
+              if cfg.moe else None)
+    return _logits_gap(kernel, plain, check, "kernel vs plain path", pinned)
+
+
+def compare_absorbed(cfg, params, check=True):
+    """MLA's weight-absorbed form against its naive form (the JAX engine
+    passes no ``mla_absorbed``): logits of one prefill + one decode step,
+    each rel. L2 within LOGITS_REL_TOL with ``check``; with MoE, beside
+    the gap with the absorbed run's router choices pinned to the naive
+    run's."""
+    naive = _prefill_decode(cfg, params)
+    pinned = (_prefill_decode(cfg, params, mla_absorbed=True, pin=naive)
+              if cfg.moe else None)
+    return _logits_gap(_prefill_decode(cfg, params, mla_absorbed=True),
+                       naive, check, "absorbed vs naive MLA", pinned)
+
+
+def logits_parity(cfg, params, image_embeds=None):
     """``compare_plain_path`` in ``LOGITS_DTYPE`` (default: the model's
     dtype) on the params cast to it, checked; where that is not the
     model's dtype, the model's dtype's too, reported and not checked."""
@@ -934,13 +1151,16 @@ def logits_parity(cfg, params):
     from repro_torch.models.config import dtype_named, dtype_of
     name = LOGITS_DTYPE.get(cfg.name, cfg.dtype)
     if name == cfg.dtype:
-        parity = compare_plain_path(cfg, params)
+        parity = compare_plain_path(cfg, params, image_embeds=image_embeds)
     else:
         dt, to = dtype_of(cfg), dtype_named(name)
-        unchecked = compare_plain_path(cfg, params, check=False)
+        unchecked = compare_plain_path(cfg, params, check=False,
+                                       image_embeds=image_embeds)
         parity = compare_plain_path(
             dataclasses.replace(cfg, dtype=name),
-            tree_map(lambda p: p.to(to) if p.dtype == dt else p, params))
+            tree_map(lambda p: p.to(to) if p.dtype == dt else p, params),
+            image_embeds=None if image_embeds is None
+            else image_embeds.to(to))
         parity[f"in_{cfg.dtype}_not_checked"] = unchecked
     print(f"{cfg.name} kernel vs plain path logits ({name}):",
           json.dumps(parity))
@@ -969,7 +1189,8 @@ def _counters():
 
 
 def _reset_counters():
-    """Every wrapper's launch count to 0, and rmsnorm's by shape."""
+    """Every wrapper's launch count to 0, and its counts by shape where it
+    keeps them (rmsnorm's, the flash forward's)."""
     for fn in _counters().values():
         fn.launches = 0
         if hasattr(fn, "shapes"):
@@ -980,8 +1201,10 @@ def _norm_widths(cfg):
     """RMSNorms per token pass by width: at d one before each mixer and
     each MLP, one after each where the layer has post-norms (gemma2), one
     inside each sLSTM block, and the final norm; at the mamba2 inner width
-    (expand x d) the gated norm inside each mamba2 mixer, and at the
-    mLSTM's (proj_factor x d) the norm inside each mLSTM block."""
+    (expand x d) the gated norm inside each mamba2 mixer, at the mLSTM's
+    (proj_factor x d) the norm inside each mLSTM block, and at MLA's
+    latent ranks its q_norm and kv_norm.  (Cross-attention's norms over
+    head_dim, at other rows, are counted by ``run_vision_slice``.)"""
     count = {cfg.d_model: 1 + _n_layers(cfg, "slstm") + sum(
         ((s.kind != "none") + (s.mlp != "none")) * (1 + s.post_norms)
         * g.repeat for g in cfg.groups for s in g.pattern)}
@@ -991,6 +1214,10 @@ def _norm_widths(cfg):
     inner = _n_layers(cfg, "mlstm")
     if inner:
         count[int(cfg.xlstm.proj_factor * cfg.d_model)] = inner
+    mla = _n_layers(cfg, "mla")
+    if mla:  # q_norm and kv_norm, at the latent ranks
+        count[cfg.mla.q_lora_rank] = mla
+        count[cfg.mla.kv_lora_rank] = mla
     return count
 
 
@@ -1114,22 +1341,25 @@ def serve(cfg, params, prompts, trace=False, card=None):
     events on, with every launch counter set to 0 just before it and read
     just after; checks each kernel's count, one epoch a prefill or decode
     step, no spill, and each request's enter, admit and exit events.  With
-    ``trace``, the runtime's trace of the run (``trace_split``)."""
+    ``trace``, the runtime's trace of the run (``trace_split``).  An MoE
+    model's calls each report their ``moe_dropped`` (``_moe_dropped``)."""
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
                         events=True, tracing=trace, device="cuda")
     calls = _time_calls(eng)
+    dropped = []
     _reset_counters()
     t0 = time.perf_counter()
-    eng.start()
-    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS,
-                       tenant=f"tenant-{i % 2}")
-            for i, p in enumerate(prompts)]
-    for r in reqs:
-        if not r.done.wait(600):
-            raise AssertionError(f"request {r.rid} did not finish")
-    wall = time.perf_counter() - t0
-    eng.stop()
+    with _moe_dropped(dropped) if cfg.moe else contextlib.nullcontext():
+        eng.start()
+        reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS,
+                           tenant=f"tenant-{i % 2}")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            if not r.done.wait(600):
+                raise AssertionError(f"request {r.rid} did not finish")
+        wall = time.perf_counter() - t0
+        eng.stop()
     launches = {n: fn.launches for n, fn in _counters().items()}
     runtime = runtime_costs(eng, calls)
     kinds = [c[0] for c in calls]
@@ -1192,7 +1422,46 @@ def serve(cfg, params, prompts, trace=False, card=None):
              "latency_p50_s": float(np.percentile(lat, 50)),
              "latency_p95_s": float(np.percentile(lat, 95)),
              "runtime": runtime}
+    if cfg.moe:
+        stats["moe_dropped"] = dropped_by_call(cfg, dropped, kinds)
     return reqs, launches, rms_calls, stats
+
+
+def _moe_dropped(record):
+    """Patch the MoE router so that each call appends its layer's share of
+    (token, k) choices that capacity dropped (a device scalar, read after
+    the run) to ``record``: serving computes no ``moe_dropped`` of its
+    own (``apply_moe(stats=False)``)."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def route(params, cfg, xt):
+        out = real(params, cfg, xt)
+        record.append(1.0 - out[3].float().mean())  # out[3]: keep
+        return out
+
+    return mock.patch.object(moe, "route", route)
+
+
+def dropped_by_call(cfg, record, kinds):
+    """The engine calls' dropped shares (``_moe_dropped``'s record, the
+    MoE layers of each call in turn; ``kinds``: each call's kind), each a
+    mean over the call's MoE layers, by kind of call: mean, max and the
+    share of calls that dropped any choice."""
+    n_moe = sum(sum(s.mlp == "moe" for s in g.pattern) * g.repeat
+                for g in cfg.groups)
+    if len(record) != n_moe * len(kinds):
+        raise AssertionError(f"{cfg.name}: {len(record)} MoE calls for "
+                             f"{len(kinds)} engine calls of {n_moe} MoE "
+                             f"layers")
+    per_call = torch.stack(record).reshape(len(kinds), n_moe).mean(1).cpu()
+    out = {}
+    for kind in ("prefill", "decode step"):
+        d = per_call[[i for i, k in enumerate(kinds) if k == kind]]
+        out[kind] = {"calls": len(d), "mean": float(d.mean()),
+                     "max": float(d.max()),
+                     "calls_dropping": float((d > 0).float().mean())}
+    return out
 
 
 def _live_bytes():
@@ -1302,17 +1571,24 @@ def _flex_attention(qt, kt, vt, kw, lengths=None, compiled=True):
 
 
 def _flash_row(q, k, v, kw, err):
-    """Operations: 4 hd FLOPs a live (query, key) pair, causal with
-    q_offset 0 and S == T, each row's window (where set) counted."""
+    """Operations: 4 hd FLOPs a live (query, key) pair: causal with
+    q_offset 0 and S == T, each row's window (where set) counted; or
+    every (query, key) pair, non-causal without a window (cross-attention,
+    S queries against T keys)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     b, s, h, hd = q.shape
-    kv = k.shape[2]
+    t, kv = k.shape[1], k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    w = min(kw["window"] or s, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
+    if kw["causal"]:
+        w = min(kw["window"] or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    else:
+        assert not kw["window"]
+        pairs = s * t
     return dict(
-        name="flash_attention", shape=[b, s, h, kv, hd], err=err,
+        name="flash_attention",
+        shape=[b, s, h, kv, hd] + ([] if t == s else [t]), err=err,
         flops=4 * hd * pairs * b * h,
         nbytes=q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1321,7 +1597,7 @@ def _flash_row(q, k, v, kw, err):
         plain=lambda: ref.flash_attention(q, k, v, **kw),
         library=_flex_attention(qt, kt, vt, kw) if kw["softcap"] else (
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=kw["scale"],
+                qt, kt, vt, is_causal=kw["causal"], scale=kw["scale"],
                 enable_gqa=True)),
         library_call="flex_attention" if kw["softcap"] else "sdpa")
 
@@ -1522,7 +1798,12 @@ def kernel_numbers(inputs, launches, rms_calls, card):
         if kind == "rms_fwd":
             inp = (*inp, call[0] in TRAINING_CALLS)
         r = make[kind](*inp)
-        n = launches[arch][r["name"]]
+        # a call's own count where the slice counts by call (the VLM's
+        # self- and cross-attention flash), else the slice's
+        n = launches[arch].get(":".join([r["name"], *call]),
+                               launches[arch][r["name"]])
+        if call and not kind.startswith("rms"):
+            extra = {"call": call[0]}
         if kind.startswith("rms"):
             per, n = rms_calls[arch][f"{r['name']}:{call[0]}:"
                                      f"{r['shape'][-1]}"]
@@ -1716,6 +1997,11 @@ def _card():
 
 
 def _category(kernel_name):
+    """A device kernel's category by its name.  Past the port's kernels
+    and the matmuls, the names that PyTorch gives the MoE routing (top-k,
+    sort, cumulative sum) and the index ops (the MoE dispatch and combine,
+    the cache writes, the embedding lookup), and softmax (MLA's attention
+    and the routers), are split out of "other"."""
     n = kernel_name.lower()
     if "flash_fwd_kernel" in n or "flash_bwd" in n or "decode_kernel" in n:
         return "attention_kernels"
@@ -1727,6 +2013,12 @@ def _category(kernel_name):
         return "rmsnorm_kernels"
     if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul"
+    if any(w in n for w in ("topk", "sort", "scan")):
+        return "topk_sort_scan"
+    if any(w in n for w in ("index", "scatter", "gather")):
+        return "index_scatter_gather"
+    if "softmax" in n:
+        return "softmax"
     return "other"
 
 
@@ -1755,13 +2047,14 @@ def _device_split(prof, n=1):
         by_cat[cat] = by_cat.get(cat, 0.0) + ms / n
     top = sorted(kernels, key=lambda k: -kernels[k][0])[:6]
     return (by_cat, sum(c for _, c in kernels.values()) / n,
-            {k[:70]: kernels[k][0] / n for k in top})
+            {k[:150]: kernels[k][0] / n for k in top})
 
 
-def profile_slice(cfg, params, card):
+def profile_slice(cfg, params, card, image_embeds=None):
     """Where the time of one decode step (8 slots, ~300 cached positions)
-    and one 512-token prefill goes: host wall time, device busy time by
-    kernel category (torch.profiler), and the device's idle share."""
+    and one 512-token prefill (with a VLM's ``image_embeds`` of one
+    sequence) goes: host wall time, device busy time by kernel category
+    (torch.profiler), and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as model_lib
@@ -1777,7 +2070,7 @@ def profile_slice(cfg, params, card):
         torch.argmax(logits[:, 0], dim=-1).cpu()
 
     def prefill():
-        model_lib.prefill(params, cfg, prompt, one)
+        model_lib.prefill(params, cfg, prompt, one, image_embeds)
         torch.cuda.synchronize()
 
     out = {"arch": cfg.name}
@@ -1811,7 +2104,8 @@ def _widths(arch):
 def published_config(arch, widths, layers=None):
     """The port's config of ``arch``, asserted at its published widths; with
     ``layers``, its depth cut to that many layers (whole repeats of its one
-    group's pattern), every width kept."""
+    group's pattern), or, for a config of several groups, to a tuple of
+    each group's layers, every width kept."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     mc = cfg.mamba
@@ -1826,7 +2120,11 @@ def published_config(arch, widths, layers=None):
           f"vocab {got[6]}, {got[7]}, mamba {got[8]}"
           + (f", xlstm {cfg.xlstm}" if cfg.xlstm else "")
           + (f", {cfg.num_codebooks} codebooks" if cfg.num_codebooks
-             else ""))
+             else "")
+          + (f", {cfg.moe}" if cfg.moe else "")
+          + (f", {cfg.mla}" if cfg.mla else "")
+          + (f", vision_dim {cfg.vision_dim}, {cfg.num_image_tokens} image "
+             f"tokens" if cfg.vision_dim else ""))
     if arch in PUBLISHED_PARAMS:
         n = cfg.param_count()
         if n != PUBLISHED_PARAMS[arch]:
@@ -1834,50 +2132,125 @@ def published_config(arch, widths, layers=None):
                                  f"package's {PUBLISHED_PARAMS[arch]}")
         print(f"{arch}: param_count() {n}, the JAX package's count")
     if layers is not None:
-        (group,) = cfg.groups
-        reps, rest = divmod(layers, len(group.pattern))
-        if rest or not 0 < reps <= group.repeat:
-            raise AssertionError(f"{arch}: cannot cut {cfg.num_layers} "
-                                 f"layers to {layers}")
-        cfg = dataclasses.replace(cfg, groups=(
-            dataclasses.replace(group, repeat=reps),))
-        print(f"{arch}: depth cut from {got[0]} to {cfg.num_layers} layers "
-              f"({reps} of {group.repeat} repeats of its "
-              f"{len(group.pattern)}-layer pattern), every width as "
-              f"published")
+        cuts = layers if isinstance(layers, tuple) else (layers,)
+        if len(cuts) != len(cfg.groups):
+            raise AssertionError(f"{arch}: {len(cfg.groups)} groups, cut "
+                                 f"to {layers}")
+        groups = []
+        for group, n in zip(cfg.groups, cuts):
+            reps, rest = divmod(n, len(group.pattern))
+            if rest or not 0 < reps <= group.repeat:
+                raise AssertionError(f"{arch}: cannot cut a group of "
+                                     f"{len(group.pattern) * group.repeat} "
+                                     f"layers to {n}")
+            groups.append(dataclasses.replace(group, repeat=reps))
+            print(f"{arch}: a group cut to {reps} of its {group.repeat} "
+                  f"repeats of its {len(group.pattern)}-layer pattern")
+        cfg = dataclasses.replace(cfg, groups=tuple(groups))
+        print(f"{arch}: depth cut from {got[0]} to {cfg.num_layers} layers, "
+              f"every width as published")
     return cfg
+
+
+def absorbed_parity(arch, widths):
+    """MLA's absorbed-vs-naive logits (``compare_absorbed``), checked in
+    fp32 on a model of its own at ``ABSORBED_CUT[arch]`` layers (the bf16
+    slice's model and an fp32 copy do not fit the card together): in bf16
+    the two forms round apart, and the router choices that flip with the
+    rounding carry the gap past LOGITS_REL_TOL (the bf16 figures, beside
+    the gap with the choices pinned, are ``moe_parity``'s)."""
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(published_config(arch, widths,
+                                               ABSORBED_CUT[arch]),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        params = model_lib.init_params(gen, cfg, "cuda")
+        _nonzero_router_bias(params, gen)
+        out = {"layers": cfg.num_layers,
+               "absorbed_vs_naive": compare_absorbed(cfg, params)}
+    print(f"{arch} at {cfg.num_layers} layers in float32:", json.dumps(out))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_parity(cfg, params, absorbed_checked):
+    """An MoE slice's bf16 logits: kernel vs plain path, checked; for MLA
+    absorbed vs naive, checked only where ``absorbed_checked`` (else it
+    is checked in fp32, ``absorbed_parity``).  Each gives the share of
+    router choices that differ and the gap with them pinned."""
+    out = {"kernel_vs_plain": compare_plain_path(cfg, params)}
+    if cfg.mla:
+        out["absorbed_vs_naive"] = compare_absorbed(
+            cfg, params, check=absorbed_checked)
+    print(f"{cfg.name} logits ({cfg.dtype}):", json.dumps(out))
+    return out
 
 
 def run_slice(arch, widths, layers, card):
     """Phase 3 for one slice (its depth cut to ``layers`` where that is not
     None); returns its engine-run launch counts, and its rmsnorm launches
     by call and width ("rmsnorm_fwd:<call>:<d>": (norms per call,
-    launches))."""
+    launches)).  An MoE slice holds a one-slot engine to a one-row
+    reference (``greedy_reference(batch=1)``), and reports how many of the
+    8-slot run's requests equal their one-slot generation, beside its
+    dropped shares: batchmates compete for the experts' capacity."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_map
+    moe = arch in MOE_ARCHS
+    cut = absorbed_parity(arch, widths) if arch in ABSORBED_CUT else None
     cfg = published_config(arch, widths, layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         params = model_lib.init_params(gen, cfg, device="cuda")
+        if moe:
+            _nonzero_router_bias(params, gen)
         leaves = []
         tree_map(leaves.append, params)
         n_params = sum(p.numel() for p in leaves)
         print(f"{arch}: {n_params} params, {cfg.dtype}, on "
               f"{torch.cuda.get_device_name(0)}")
-        parity = logits_parity(cfg, params)
+        if moe:
+            parity = moe_parity(cfg, params, absorbed_checked=cut is None)
+            if cut is not None:
+                parity["float32_cut"] = cut
+        else:
+            parity = logits_parity(cfg, params)
         prompts = make_prompts(cfg)
         picks = (0, N_REQUESTS - 1)  # slot 0 first, then a reused slot
-        want = {i: greedy_reference(cfg, params, prompts[i])
-                for i in picks}
+        if moe:
+            solo = solo_generations(cfg, params, prompts)
+            for i in picks:
+                want = greedy_reference(cfg, params, prompts[i], batch=1)
+                if solo[i] != want:
+                    raise AssertionError(f"{arch} request {i}: one-slot "
+                                         f"engine {solo[i]} != one-row "
+                                         f"reference {want}")
+            print(f"{arch} requests {picks}: a one-slot engine's tokens "
+                  f"equal the one-row greedy reference")
+        else:
+            want = {i: greedy_reference(cfg, params, prompts[i])
+                    for i in picks}
     reqs, launches, rms_calls, stats = serve(
         cfg, params, prompts, trace=arch == TRAIN_ARCH, card=card)
-    for i in picks:
-        if reqs[i].out_tokens != want[i]:
-            raise AssertionError(f"{arch} request {i}: engine "
-                                 f"{reqs[i].out_tokens} != reference "
-                                 f"{want[i]}")
-    print(f"{arch} requests {picks}: engine tokens equal the one-request "
-          f"greedy reference")
+    if moe:
+        same = [i for i, r in enumerate(reqs) if r.out_tokens == solo[i]]
+        stats["equal_to_solo"] = len(same)
+        print(f"{arch}: {len(same)} of {N_REQUESTS} requests of the "
+              f"{MAX_BATCH}-slot run equal their one-slot generation "
+              f"(not checked: a decode step's rows share the experts' "
+              f"capacity); dropped shares by call: "
+              f"{json.dumps(stats['moe_dropped'])}")
+    else:
+        for i in picks:
+            if reqs[i].out_tokens != want[i]:
+                raise AssertionError(f"{arch} request {i}: engine "
+                                     f"{reqs[i].out_tokens} != reference "
+                                     f"{want[i]}")
+        print(f"{arch} requests {picks}: engine tokens equal the "
+              f"one-request greedy reference")
     flood = FLOOD.get(arch, FLOOD_REQUESTS)
     memory = serving_memory(cfg, params, prompts, flood)
     print(f"{arch} device memory flat across {memory['requests']} requests "
@@ -1905,20 +2278,34 @@ def run_slice(arch, widths, layers, card):
     return launches, rms_calls
 
 
-def generate_codes(cfg, params, prompts):
-    """Greedy generation of a multi-codebook model for a batch of (B, S, K)
-    prompts: one prefill of the batch into a cache of MAX_LEN positions,
-    then NEW_TOKENS decode steps, each codebook's token its own argmax.
-    Returns the (B, 1 + NEW_TOKENS, K) codes on the host (the first from
+def _nonzero_router_bias(params, gen):
+    """deepseek-v3's router biases (zeros at init; they move the selection
+    only) set to N(0, 0.1^2) draws from ``gen``, so that the bias is at
+    work in every check of the slice."""
+    for group in params["groups"]:
+        for slot in group["slots"]:
+            router = slot.get("mlp", {}).get("router", {})
+            if "bias" in router:
+                b = router["bias"]
+                b.copy_(torch.randn(b.shape, generator=gen,
+                                    device=b.device) * 0.1)
+
+
+def generate_codes(cfg, params, prompts, image_embeds=None):
+    """Greedy generation for a batch of prompts, (B, S, K) codes of a
+    multi-codebook model or (B, S) tokens (with a VLM's image embeddings):
+    one prefill of the batch into a cache of MAX_LEN positions, then
+    NEW_TOKENS decode steps, each codebook's token its own argmax.
+    Returns the (B, 1 + NEW_TOKENS[, K]) codes on the host (the first from
     the prefill's logits) and the seconds of the prefill and of the decode
     steps, each to a sync."""
     from repro_torch.models import model as model_lib
-    b, s, _ = prompts.shape
+    b, s = prompts.shape[:2]
     cache = model_lib.init_cache(cfg, b, MAX_LEN, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model_lib.prefill(
-        params, cfg, torch.from_numpy(prompts).cuda(), cache)
+        params, cfg, torch.from_numpy(prompts).cuda(), cache, image_embeds)
     cur = torch.argmax(logits, dim=-1)                    # (B, 1, K)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1963,6 +2350,7 @@ def run_codebook_slice(arch, widths, card):
         codes, prefill_s, decode_s = generate_codes(cfg, params, prompts)
         launches = {n: fn.launches for n, fn in _counters().items()}
         rms_shapes = dict(_counters()["rmsnorm_fwd"].shapes)
+        flash_shapes = dict(_counters()["flash_attention"].shapes)
         picks = (0, MAX_BATCH - 1)
         for i in picks:
             alone = np.zeros_like(prompts)
@@ -2004,6 +2392,151 @@ def run_codebook_slice(arch, widths, card):
     with torch.inference_mode():
         print(json.dumps({"profile": profile_slice(cfg, params, card)}))
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rms_calls
+
+
+def _open_gates(params, gen):
+    """Every cross-attention gate (0 at init, so tanh(gate) would shut
+    the layer) set to a draw from U(0.5, 1.5) of ``gen``."""
+    for group in params["groups"]:
+        for slot in group["slots"]:
+            gate = slot.get("mixer", {}).get("gate")
+            if gate is not None:
+                gate.copy_(torch.rand(gate.shape, generator=gen,
+                                      device=gate.device) + 0.5)
+
+
+def run_vision_slice(arch, widths, layers, card):
+    """Phase 3 for llama-3.2-vision, which the engine refuses (as the JAX
+    engine: requests carry no image): MAX_BATCH prompts of VISION_PROMPT
+    tokens, each with 2048 image embeddings from the seed (the vision
+    frontend is a stub, as in the JAX config), prefilled as one batch,
+    then NEW_TOKENS greedy decode steps (``generate_codes``), every launch
+    counter set to 0 just before and read just after: the prefill runs
+    one causal flash a self-attention layer and one non-causal flash (the
+    prompt against the image tokens) a cross-attention layer; a decode
+    step one decode a self-attention layer and one flash of S = 1 against
+    the image tokens' cached keys and values a cross-attention layer;
+    rmsnorm at d for every layer's two norms and the final norm, and over
+    head_dim for cross-attention's q_norm (a row a query head) and, at the
+    prefill, k_norm (a row an image token's kv head).  The gates are set
+    nonzero (``_open_gates``).  An image's embeddings are one vector of
+    the image plus one a token, each N(0, 1): a vision encoder's patch
+    embeddings share much of their content, and with independent tokens
+    near-uniform attention over 2048 of them averages an image's mark
+    away (on an H100 they moved the logits by rel. L2 0.0372, under
+    LOGITS_REL_TOL).  Checks:
+    the first and last sequences generated alone (row 0 of a batch whose
+    other rows are zero) equal the batched run's; kernel-path logits
+    against the plain path; other image embeddings move the prefill
+    logits by at least IMAGE_MOVE_OF times LOGITS_REL_TOL.  Returns the
+    launch counts (the flash ones also by call, from the wrapper's count
+    by shape) and the rmsnorm launches by call and width, as
+    ``run_slice``."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.config import dtype_of
+    cfg = published_config(arch, widths, layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def images():
+        shared = torch.randn((MAX_BATCH, 1, cfg.vision_dim), generator=gen,
+                             device="cuda")
+        return (shared + torch.randn((MAX_BATCH, cfg.num_image_tokens,
+                                      cfg.vision_dim), generator=gen,
+                                     device="cuda")).to(dtype_of(cfg))
+
+    with torch.inference_mode():
+        params = model_lib.init_params(gen, cfg, device="cuda")
+        _open_gates(params, gen)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        print(f"{arch}: {n_params} params, {cfg.dtype}, on "
+              f"{torch.cuda.get_device_name(0)}")
+        img = images()
+        parity = logits_parity(cfg, params, image_embeds=img)
+        prompts = _token_array(np.random.default_rng(2), cfg, MAX_BATCH,
+                               VISION_PROMPT)
+        _reset_counters()
+        toks, prefill_s, decode_s = generate_codes(cfg, params, prompts, img)
+        launches = {n: fn.launches for n, fn in _counters().items()}
+        rms_shapes = dict(_counters()["rmsnorm_fwd"].shapes)
+        flash_shapes = dict(_counters()["flash_attention"].shapes)
+        picks = (0, MAX_BATCH - 1)
+        for i in picks:
+            alone, alone_img = np.zeros_like(prompts), torch.zeros_like(img)
+            alone[0], alone_img[0] = prompts[i], img[i]
+            got, _, _ = generate_codes(cfg, params, alone, alone_img)
+            if not torch.equal(got[0], toks[i]):
+                raise AssertionError(f"{arch} sequence {i} alone: "
+                                     f"{got[0].tolist()} != batched "
+                                     f"{toks[i].tolist()}")
+        other = _rel_l2(*(_prefill_decode(cfg, params, im)[0][0]
+                          for im in (images(), img)))
+        if not other >= IMAGE_MOVE_OF * LOGITS_REL_TOL:
+            raise AssertionError(f"{arch}: other image embeddings move the "
+                                 f"prefill logits by rel. L2 {other}, less "
+                                 f"than {IMAGE_MOVE_OF} x LOGITS_REL_TOL")
+    print(f"{arch} sequences {picks} generated alone equal the batched "
+          f"run's {NEW_TOKENS + 1} tokens; other image embeddings move the "
+          f"prefill logits by rel. L2 {other:.4f}")
+    n_self, n_cross = _n_layers(cfg, "attn"), _n_layers(cfg, "cross_attn")
+    n_d = sum(_norm_widths(cfg).values())
+    hd, rows = cfg.head_dim, MAX_BATCH * VISION_PROMPT
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=n_self + n_cross * (1 + NEW_TOKENS),
+                decode_attention=n_self * NEW_TOKENS,
+                rmsnorm_fwd=(n_d + 2 * n_cross)
+                + (n_d + n_cross) * NEW_TOKENS)
+    calls = {  # call: ((rows, width), norms a call, calls)
+        "prefill": ((rows, cfg.d_model), n_d, 1),
+        "prefill q_norm": ((rows * cfg.num_heads, hd), n_cross, 1),
+        "prefill k_norm": ((MAX_BATCH * cfg.num_image_tokens
+                            * cfg.num_kv_heads, hd), n_cross, 1),
+        "decode step": ((MAX_BATCH, cfg.d_model), n_d, NEW_TOKENS),
+        "decode step q_norm": ((MAX_BATCH * cfg.num_heads, hd), n_cross,
+                               NEW_TOKENS)}
+    want_shapes = {shape: per * n for shape, per, n in calls.values()}
+    # the flash launches by call, told apart by the wrapper's count by
+    # (b, s, t, h, kv, hd): the prompt against itself, the prompt and a
+    # decode step's token against the image tokens
+    heads = (cfg.num_heads, cfg.num_kv_heads, hd)
+    flash_calls = {
+        "self prefill": ((MAX_BATCH, VISION_PROMPT, VISION_PROMPT, *heads),
+                         n_self),
+        "cross prefill": ((MAX_BATCH, VISION_PROMPT, cfg.num_image_tokens,
+                           *heads), n_cross),
+        "cross decode step": ((MAX_BATCH, 1, cfg.num_image_tokens, *heads),
+                              n_cross * NEW_TOKENS)}
+    want_flash = {shape: n for shape, n in flash_calls.values()}
+    if (launches != want or rms_shapes != want_shapes
+            or flash_shapes != want_flash):
+        raise AssertionError(f"{arch}: launches {launches}, rmsnorm's by "
+                             f"shape {rms_shapes}, flash's {flash_shapes}; "
+                             f"expected {want}, {want_shapes}, "
+                             f"{want_flash}")
+    print(f"{arch} launches: one prefill of {MAX_BATCH} x {VISION_PROMPT} "
+          f"tokens and {cfg.num_image_tokens} image tokens, and "
+          f"{NEW_TOKENS} decode steps: {json.dumps(launches)}")
+    launches.update({f"flash_attention:{call}": flash_shapes[shape]
+                     for call, (shape, _) in flash_calls.items()})
+    rms_calls = {f"rmsnorm_fwd:{call}:{shape[1]}": (per, per * n)
+                 for call, (shape, per, n) in calls.items()}
+    stats = {"arch": cfg.name, "n_params": n_params, "batch": MAX_BATCH,
+             "prompt_tokens": VISION_PROMPT,
+             "image_tokens": cfg.num_image_tokens,
+             "decode_steps": NEW_TOKENS, "prefill_s": prefill_s,
+             "decode_s": decode_s,
+             "decode_step_ms": 1e3 * decode_s / NEW_TOKENS,
+             "tokens_per_s": MAX_BATCH * NEW_TOKENS / decode_s,
+             "other_images_rel_l2": other, "parity": parity,
+             "launches": launches, "card": card}
+    print(json.dumps({"vision_slice": stats}))
+    with torch.inference_mode():
+        print(json.dumps({"profile": profile_slice(
+            cfg, params, card, image_embeds=img[:1])}))
+    del params, img
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rms_calls
@@ -3054,6 +3587,7 @@ def main(argv=()) -> int:
         ("flash_fwd_kernel_sm90", "Li128E"), ("flash_fwd_kernel_sm90",
                                               "Li256E"),
         ("flash_fwd_kernel", "IfLi256E"), ("decode_kernel", "Li128ELi7E"),
+        ("decode_kernel", "Li128ELi6E"), ("decode_kernel", "IfLi128ELi6E"),
         ("decode_kernel", "IfLi128ELi7E"), ("decode_kernel", "IfLi256ELi8E")
     ] + [("decode_kernel", f"Li256ELi{g}E") for g in (1, 2, 4, 7, 8)] + [
         ("decode_kernel", "Li64ELi4E"), ("decode_kernel", "Li80ELi1E"),
@@ -3104,6 +3638,9 @@ def main(argv=()) -> int:
         if arch == MUSIC_ARCH:
             launches[arch], rms_calls[arch] = run_codebook_slice(
                 arch, widths, card)
+        elif arch == VISION:
+            launches[arch], rms_calls[arch] = run_vision_slice(
+                arch, widths, layers, card)
         else:
             launches[arch], rms_calls[arch] = run_slice(arch, widths,
                                                         layers, card)

@@ -1,11 +1,12 @@
-"""The optimized configurations of :mod:`repro.configs.optimized`, for the
-architectures ported so far.
+"""The optimized configurations of :mod:`repro.configs.optimized`.
 
 ``optimized_config(name)`` layers each arch's fusion and sharding choices
-over its published config, with the overrides of the JAX package for the
-ported archs.  ``seq_parallel`` is kept so that the configs equal JAX's
-field by field; on one card it changes nothing (the port has no mesh
-yet).  Any other name raises "not ported yet" through :func:`get_config`.
+over its published config, with the overrides of the JAX package.
+``seq_parallel`` and ``moe_sharding`` are kept so that the configs equal
+JAX's field by field; on one card they change nothing (the port has no
+mesh yet).  ``_moe_group_size`` sets ``moe.group_size``, the tokens of an
+MoE dispatch group.  Any other name raises "not ported yet" through
+:func:`get_config`.
 """
 from __future__ import annotations
 
@@ -20,7 +21,12 @@ _OVERRIDES: dict[str, dict] = {
     "deepseek_coder_33b": dict(fuse_qkv=True, fuse_glu=True,
                                seq_parallel=True),
     "zamba2_2_7b": dict(fuse_glu=True),
+    "grok_1_314b": dict(fuse_qkv=True, fuse_glu=True),
+    "deepseek_v3_671b": dict(moe_sharding="ep_fsdp", _moe_group_size=512,
+                             fuse_glu=True),
     "xlstm_350m": dict(),
+    "llama3_2_vision_90b": dict(fuse_qkv=True, fuse_glu=True,
+                                seq_parallel=True),
     "musicgen_medium": dict(remat="full", fuse_qkv=True, fuse_glu=True,
                             seq_parallel=True),
 }
@@ -28,4 +34,9 @@ _OVERRIDES: dict[str, dict] = {
 
 def optimized_config(name: str):
     cfg = configs.get_config(name)
-    return dataclasses.replace(cfg, **_OVERRIDES[configs.canonical(name)])
+    over = dict(_OVERRIDES[configs.canonical(name)])
+    gsize = over.pop("_moe_group_size", None)
+    if gsize is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, group_size=gsize))
+    return dataclasses.replace(cfg, **over)

@@ -245,7 +245,7 @@ def launch_check(kernel: str, err: int) -> None:
 _count_lock = threading.Lock()
 
 
-def count_launch(counter, shape: tuple[int, int] | None = None) -> None:
+def count_launch(counter, shape: tuple[int, ...] | None = None) -> None:
     """One launch of the kernel behind ``counter`` (a wrapper function):
     ``counter.launches += 1``, and ``counter.shapes[shape] += 1`` where
     the wrapper counts by shape, under one lock, so wrappers called from

@@ -41,7 +41,7 @@
 //  * Products stay on the CUDA cores in fp32: at G <= 16 query rows the
 //    tensor cores' 64-row tiles would be mostly padding, and the bytes
 //    bound the kernel, not the operations.
-//  * Head dims 32, 64, 80, 128 and 256; G = 1, 2, 4, 7, 8 and 16.  Keys
+//  * Head dims 32, 64, 80, 128 and 256; G = 1, 2, 4, 6, 7, 8 and 16.  Keys
 //    are read at the true head dim in 16-byte vectors (an 80-dim bf16 row
 //    is ten), a lane a position.  In the PV product a lane reads a vector
 //    of one value row, so a warp reads whole rows at once (three rows of
@@ -336,6 +336,7 @@ cudaError_t launch_g(int G, const Args& a) {
     case 1: return launch_if_built<T, HD, 1>(a);
     case 2: return launch_if_built<T, HD, 2>(a);
     case 4: return launch_if_built<T, HD, 4>(a);
+    case 6: return launch_if_built<T, HD, 6>(a);
     case 7: return launch_if_built<T, HD, 7>(a);
     case 8: return launch_if_built<T, HD, 8>(a);
     case 16: return launch_if_built<T, HD, 16>(a);

@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "decode_attention"
-GROUP_SIZES = (1, 2, 4, 7, 8, 16)  # H/KV values the kernel is built for
+GROUP_SIZES = (1, 2, 4, 6, 7, 8, 16)  # H/KV values the kernel is built for
 # fp32 accumulators a lane holds for its G query rows: a (head_dim, G)
 # pair is built where G * head_dim / 32 <= MAX_ACC (every pair of
 # build.HEAD_DIMS and GROUP_SIZES but (256, 16)).  The source of the rule

@@ -9,6 +9,8 @@ package has no backward kernel.  Takes CUDA tensors only;
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import build
@@ -78,7 +80,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, s, t, h, kv, hd, int(causal), int(window or 0), float(scale),
         float(softcap or 0.0), int(q_offset), stream)
     build.launch_check(NAME, err)
-    build.count_launch(flash_attention)
+    build.count_launch(flash_attention, (b, s, t, h, kv, hd))
     return out, lse
 
 
@@ -135,5 +137,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+# launches, and the forward's launches by (b, s, t, h, kv, hd)
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention.shapes = collections.Counter()

@@ -321,3 +321,23 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     norm = torch.maximum(w.sum(dim=2).abs(), torch.exp(-m[:, :, 0]))
     y = torch.einsum("bsun,bunh->bsnh", w, _f32(v))
     return (y / (norm[..., None] + eps)).to(v.dtype)
+
+
+def topk_gating(logits: torch.Tensor, k: int, *, router: str = "softmax",
+                bias: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE router.  logits: (T, E) -> (weights (T,k) fp32, idx (T,k)).
+
+    ``bias`` (DeepSeek-V3's aux-loss-free routing) moves the selection
+    only: the weights come from the unbiased logits.  Softmax weights are
+    normalised over the k chosen logits; sigmoid weights are renormalised
+    to sum to 1 (+1e-20), as :func:`repro.kernels.ref.topk_gating`."""
+    sel = logits if bias is None else logits + bias[None]
+    idx = torch.topk(sel, k, dim=-1).indices
+    gathered = _f32(torch.gather(logits, -1, idx))
+    if router == "sigmoid":
+        w = torch.sigmoid(gathered)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    else:
+        w = torch.softmax(gathered, dim=-1)
+    return w, idx

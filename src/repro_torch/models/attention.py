@@ -1,4 +1,5 @@
-"""GQA attention (full / sliding-window / soft-capped).
+"""Attention variants: GQA (full / sliding-window / soft-capped), DeepSeek
+MLA, and gated cross-attention (VLM image layers).
 
 Three execution modes share one code path, as in
 :mod:`repro.models.attention`:
@@ -10,8 +11,13 @@ Unlike the JAX version, prefill and decode write the KV cache in place and
 return the same cache dict.  ``cfg.fuse_qkv`` keeps one (D, (H + 2 KV) hd)
 projection ``wqkv`` in place of ``wq``/``wk``/``wv``, as the JAX version
 does.  ``spec.qk_norm`` adds an RMSNorm over head_dim on q and k (leaves
-``q_norm``, ``k_norm``) after the projections and before RoPE.  Not
-ported yet: MLA and cross-attention.
+``q_norm``, ``k_norm``) after the projections and before RoPE.
+
+MLA computes its attention in plain torch, as the JAX version does in
+jnp; its caches hold the normed latent ``ckv`` and the rotated shared
+``krope``.  Cross-attention attends to the image embeddings through the
+non-causal flash kernel; its cache holds the image keys and values,
+written at prefill and read by every decode step.
 """
 from __future__ import annotations
 
@@ -116,3 +122,204 @@ def _scatter_time(buf: torch.Tensor, val: torch.Tensor,
     place (the JAX version returns an updated copy)."""
     b = buf.shape[0]
     buf[torch.arange(b, device=buf.device), pos] = val.to(buf.dtype)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3 Multi-head Latent Attention (MLA)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+             device: torch.device) -> Params:
+    dt = dtype_of(cfg)
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq_a": dense_init(gen, d, (m.q_lora_rank,), dt, device),
+        "q_norm": rmsnorm_init(m.q_lora_rank, dt, device),
+        "wq_b": dense_init(gen, m.q_lora_rank, (h * qd,), dt, device),
+        "wkv_a": dense_init(gen, d, (m.kv_lora_rank + m.rope_head_dim,), dt,
+                            device),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, dt, device),
+        "wk_b": dense_init(gen, m.kv_lora_rank, (h * m.nope_head_dim,), dt,
+                           device),
+        "wv_b": dense_init(gen, m.kv_lora_rank, (h * m.v_head_dim,), dt,
+                           device),
+        "wo": dense_init(gen, h * m.v_head_dim, (d,), dt, device),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                   max_len: int, dtype: torch.dtype,
+                   device: torch.device) -> Params:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, m.rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def _mla_attend_block(cfg: ModelConfig, q_nope, q_rope, ckv, krope,
+                      wk_b, wv_b, mask, absorbed: bool) -> torch.Tensor:
+    """One dense block of latent attention.
+
+    q_nope: (B,S,H,dn)  q_rope: (B,S,H,dr)  ckv: (B,T,r)  krope: (B,T,dr)
+    mask: broadcastable to (B,S,T), True where a query attends.
+
+    ``absorbed`` folds wk_b / wv_b into the query and output sides, so
+    the per-position work stays in the latent space; otherwise K and V
+    are expanded per head (DeepSeek's naive form).
+    """
+    m = cfg.mla
+    h = cfg.num_heads
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    if absorbed:
+        wk = wk_b.reshape(m.kv_lora_rank, h, m.nope_head_dim)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk)
+        scores = torch.einsum("bshr,btr->bhst", q_lat, ckv)
+        scores = scores + torch.einsum("bshr,btr->bhst", q_rope, krope)
+        scores = scores.float() * scale
+        scores = torch.where(mask[:, None], scores, -1e30)
+        p = torch.softmax(scores, dim=-1).to(ckv.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", p, ckv)  # latent context
+        wv = wv_b.reshape(m.kv_lora_rank, h, m.v_head_dim)
+        return torch.einsum("bshr,rhv->bshv", ctx, wv)
+    b, t = ckv.shape[:2]
+    k_nope = (ckv @ wk_b).reshape(b, t, h, m.nope_head_dim)
+    value = (ckv @ wv_b).reshape(b, t, h, m.v_head_dim)
+    scores = torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+    scores = scores + torch.einsum("bshr,btr->bhst", q_rope, krope)
+    scores = scores.float() * scale
+    scores = torch.where(mask[:, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(value.dtype)
+    return torch.einsum("bhst,bthv->bshv", p, value)
+
+
+_MLA_BLOCK_THRESHOLD = 8192
+_MLA_Q_BLOCK = 1024
+
+
+def _mla_attend_causal(cfg: ModelConfig, q_nope, q_rope, ckv, krope,
+                       wk_b, wv_b, absorbed: bool) -> torch.Tensor:
+    """Causal latent attention; past ``_MLA_BLOCK_THRESHOLD`` queries it
+    runs in blocks of ``_MLA_Q_BLOCK``, each against the keys up to its
+    last query, so the (S, T) scores never materialise whole."""
+    s, t = q_nope.shape[1], ckv.shape[1]
+    dev = q_nope.device
+    if s <= _MLA_BLOCK_THRESHOLD:
+        mask = (torch.arange(s, device=dev)[:, None]
+                >= torch.arange(t, device=dev)[None, :])[None]
+        return _mla_attend_block(cfg, q_nope, q_rope, ckv, krope, wk_b,
+                                 wv_b, mask, absorbed)
+    assert s % _MLA_Q_BLOCK == 0
+    outs = []
+    for qs in range(0, s, _MLA_Q_BLOCK):
+        hi = min(t, qs + _MLA_Q_BLOCK)
+        mask = ((torch.arange(_MLA_Q_BLOCK, device=dev)[:, None] + qs)
+                >= torch.arange(hi, device=dev)[None, :])[None]
+        outs.append(_mla_attend_block(
+            cfg, q_nope[:, qs:qs + _MLA_Q_BLOCK],
+            q_rope[:, qs:qs + _MLA_Q_BLOCK], ckv[:, :hi], krope[:, :hi],
+            wk_b, wv_b, mask, absorbed))
+    return torch.cat(outs, dim=1)
+
+
+def apply_mla(params: Params, cfg: ModelConfig, spec: LayerSpec,
+              x: torch.Tensor, positions: torch.Tensor,
+              cache: Params | None = None, *,
+              absorbed: bool = False) -> tuple[torch.Tensor, Params | None]:
+    """Train, prefill or decode as :func:`apply_attn`; the cache (``ckv``,
+    ``krope``) is written in place."""
+    b, s, _ = x.shape
+    m = cfg.mla
+    h = cfg.num_heads
+    q = rmsnorm(params["q_norm"], x @ params["wq_a"], eps=cfg.norm_eps)
+    q = (q @ params["wq_b"]).reshape(b, s, h,
+                                     m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.nope_head_dim, m.rope_head_dim],
+                                 dim=-1)
+    q_rope = common.apply_rope(q_rope, positions, theta=cfg.rope_theta)
+
+    ckv, krope = torch.split(x @ params["wkv_a"],
+                             [m.kv_lora_rank, m.rope_head_dim], dim=-1)
+    ckv = rmsnorm(params["kv_norm"], ckv, eps=cfg.norm_eps)
+    krope = common.apply_rope(krope[:, :, None], positions,
+                              theta=cfg.rope_theta)[:, :, 0]
+
+    if cache is None or s > 1:  # train, or prefill
+        if cache is not None:
+            cache["ckv"][:, :s].copy_(ckv)
+            cache["krope"][:, :s].copy_(krope)
+        out = _mla_attend_causal(cfg, q_nope, q_rope, ckv, krope,
+                                 params["wk_b"], params["wv_b"], absorbed)
+        return out.reshape(b, s, -1) @ params["wo"], cache
+
+    pos = positions[:, 0]
+    _scatter_time(cache["ckv"], ckv[:, 0], pos)
+    _scatter_time(cache["krope"], krope[:, 0], pos)
+    t = cache["ckv"].shape[1]
+    mask = torch.arange(t, device=x.device)[None, None, :] \
+        <= pos[:, None, None]                                   # (B,1,T)
+    out = _mla_attend_block(cfg, q_nope, q_rope, cache["ckv"],
+                            cache["krope"], params["wk_b"], params["wv_b"],
+                            mask, absorbed)
+    return out.reshape(b, s, -1) @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Gated cross-attention (VLM image layers; the vision frontend is a stub)
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                    device: torch.device) -> Params:
+    dt = dtype_of(cfg)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, d, (h * hd,), dt, device),
+        "wk": dense_init(gen, cfg.vision_dim, (kv * hd,), dt, device),
+        "wv": dense_init(gen, cfg.vision_dim, (kv * hd,), dt, device),
+        "wo": dense_init(gen, h * hd, (d,), dt, device),
+        "gate": torch.zeros((), dtype=dt, device=device),
+        "q_norm": rmsnorm_init(hd, dt, device),
+        "k_norm": rmsnorm_init(hd, dt, device),
+    }
+
+
+def init_cross_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, dtype: torch.dtype,
+                     device: torch.device) -> Params:
+    shape = (batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "filled": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def apply_cross_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
+                     x: torch.Tensor, image_embeds: torch.Tensor | None,
+                     cache: Params | None = None
+                     ) -> tuple[torch.Tensor, Params | None]:
+    """x: (B,S,D); image_embeds: (B, N_img, vision_dim), or None at a
+    decode step, which reads K/V from the cache that prefill filled (in
+    place).  The output is gated by tanh(gate)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
+
+    if image_embeds is not None:
+        k = (image_embeds @ params["wk"]).reshape(b, -1, kv, hd)
+        k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
+        v = (image_embeds @ params["wv"]).reshape(b, -1, kv, hd)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+            cache["filled"].fill_(1)
+    else:
+        assert cache is not None, "decode cross-attn needs a filled cache"
+        k, v = cache["k"], cache["v"]
+
+    out = ops.flash_attention(q, k, v, causal=False, window=None,
+                              softcap=None, scale=1.0 / math.sqrt(hd))
+    out = out.reshape(b, s, h * hd) @ params["wo"]
+    gate = torch.tanh(params["gate"].float()).to(out.dtype)
+    return out * gate, cache

@@ -1,7 +1,7 @@
 """Layer composition and the loop-over-layers group machinery.
 
 One *layer* = (pre-norm -> mixer block -> residual) + optional
-(pre-norm -> MLP -> residual), with gemma2-style post-norms (a norm of the
+(pre-norm -> MLP/MoE -> residual), with gemma2-style post-norms (a norm of the
 block's output before the residual add) when ``spec.post_norms``.  A
 *group* repeats a pattern of layers whose params are stacked over the
 repeat axis, as in :mod:`repro.models.blocks`; a Python loop over that
@@ -19,9 +19,14 @@ kernels launch outside PyTorch's dispatcher, so the policy never sees
 them: they run again in the recomputation, as under ``"full"`` (and as
 ``checkpoint_dots`` recomputes a ``pallas_call``, which is not a dot).
 
-Ported: mixers ``attn``, ``mamba2``, ``mlstm`` and ``slstm`` and pure-MLP
-layers (``kind="none"``), with ``mlp="glu"`` (gated or plain) or
-``"none"``, and post-norms.  Not yet: ``mla``, ``cross_attn`` and MoE.
+Mixers ``attn``, ``mla``, ``cross_attn``, ``mamba2``, ``mlstm`` and
+``slstm`` and pure-MLP layers (``kind="none"``), with ``mlp="glu"``
+(gated or plain), ``"moe"`` or ``"none"``, and post-norms.  Every layer
+returns the MoE statistics ``moe_aux_loss`` and ``moe_dropped``
+(``ZERO_AUX`` where it has no MoE, or where ``ctx["moe_stats"]`` is
+not set: the training forwards set it, serving reads no statistics and
+skips their work), and a group sums them over its layers and repeats,
+as the JAX scan body carries them.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, mamba2, xlstm
+from repro_torch.models import attention, mamba2, moe, xlstm
 from repro_torch.models.common import (rmsnorm, rmsnorm_init, tree_leaves,
                                        tree_map)
 from repro_torch.models.config import (GroupSpec, LayerSpec, ModelConfig,
@@ -42,7 +47,9 @@ from repro_torch.models.mlp import apply_mlp, init_mlp
 Params = Any
 
 
-_MIXER_INIT = {"attn": attention.init_attn, "mamba2": mamba2.init_mamba2,
+_MIXER_INIT = {"attn": attention.init_attn, "mla": attention.init_mla,
+               "cross_attn": attention.init_cross_attn,
+               "mamba2": mamba2.init_mamba2,
                "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
 
 # remat="dots": the ops whose outputs the backward keeps (JAX's dots)
@@ -62,14 +69,20 @@ _REMAT = {
         create_selective_checkpoint_contexts, _save_dots)},
 }
 _CACHE_INIT = {"attn": attention.init_attn_cache,
+               "mla": attention.init_mla_cache,
+               "cross_attn": attention.init_cross_cache,
                "mamba2": mamba2.init_mamba_cache,
                "mlstm": xlstm.init_mlstm_cache,
                "slstm": xlstm.init_slstm_cache}
 
 
+# a layer's MoE statistics where it has no MoE; apply_layer fills a copy
+ZERO_AUX = {"moe_aux_loss": 0.0, "moe_dropped": 0.0}
+
+
 def _check_supported(spec: LayerSpec) -> None:
     if spec.kind not in (*_MIXER_INIT, "none") or \
-            spec.mlp not in ("glu", "none"):
+            spec.mlp not in ("glu", "moe", "none"):
         raise NotImplementedError(
             f"layer kind={spec.kind!r} mlp={spec.mlp!r}: not ported yet")
 
@@ -90,7 +103,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
             p["post_norm"] = rmsnorm_init(cfg.d_model, dt, device)
     if spec.mlp != "none":
         p["pre_mlp_norm"] = rmsnorm_init(cfg.d_model, dt, device)
-        p["mlp"] = init_mlp(gen, cfg, device)
+        p["mlp"] = (moe.init_moe(gen, cfg, device) if spec.mlp == "moe"
+                    else init_mlp(gen, cfg, device))
         if spec.post_norms:
             p["post_mlp_norm"] = rmsnorm_init(cfg.d_model, dt, device)
     return p
@@ -107,13 +121,23 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 def apply_layer(params: Params, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, ctx: dict, cache: Params | None
-                ) -> tuple[torch.Tensor, Params | None]:
+                ) -> tuple[torch.Tensor, Params | None, dict]:
+    """One layer: (x, cache, aux), aux as ``ZERO_AUX`` or the MoE's fp32
+    ``moe_aux_loss`` and ``moe_dropped``."""
     _check_supported(spec)
+    aux = dict(ZERO_AUX)
     if spec.kind != "none":
         h = rmsnorm(params["pre_norm"], x, eps=cfg.norm_eps)
         if spec.kind == "attn":
             h, cache = attention.apply_attn(
                 params["mixer"], cfg, spec, h, ctx["positions"], cache)
+        elif spec.kind == "mla":
+            h, cache = attention.apply_mla(
+                params["mixer"], cfg, spec, h, ctx["positions"], cache,
+                absorbed=ctx.get("mla_absorbed", False))
+        elif spec.kind == "cross_attn":
+            h, cache = attention.apply_cross_attn(
+                params["mixer"], cfg, spec, h, ctx.get("image_embeds"), cache)
         elif spec.kind == "mamba2":
             h, cache = mamba2.apply_mamba2(params["mixer"], cfg, spec, h,
                                            cache)
@@ -128,11 +152,17 @@ def apply_layer(params: Params, cfg: ModelConfig, spec: LayerSpec,
         x = x + h
     if spec.mlp != "none":
         h = rmsnorm(params["pre_mlp_norm"], x, eps=cfg.norm_eps)
-        h = apply_mlp(params["mlp"], cfg, h)
+        if spec.mlp == "moe":
+            stats = ctx.get("moe_stats", False)
+            h, moe_aux = moe.apply_moe(params["mlp"], cfg, h, stats=stats)
+            if stats:
+                aux = {k: moe_aux[k].float() for k in ZERO_AUX}
+        else:
+            h = apply_mlp(params["mlp"], cfg, h)
         if spec.post_norms:
             h = rmsnorm(params["post_mlp_norm"], h, eps=cfg.norm_eps)
         x = x + h
-    return x, cache
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -144,20 +174,25 @@ def init_group(gen: torch.Generator, cfg: ModelConfig, gspec: GroupSpec,
     """Each unshared slot's params stacked over the repeats, drawn repeat
     by repeat and copied into the stack as they come, so the card holds
     the stack and one repeat, not the stack twice (gemma2-27b's two slots
-    are 26 GB each in bf16)."""
+    are 26 GB each in bf16).  A group of one repeat stacks its layer as a
+    view, without a copy (deepseek-v3's MoE layer is 45 GB in fp32)."""
     slot_params = []
     for spec in gspec.pattern:
         if spec.shared:
             slot_params.append(init_layer(gen, cfg, spec, device))
             continue
         first = init_layer(gen, cfg, spec, device)
+        if gspec.repeat == 1:
+            slot_params.append(tree_map(lambda a: a[None], first))
+            continue
         stack = tree_map(lambda a: a.new_empty((gspec.repeat, *a.shape)),
                          first)
-        for r in range(gspec.repeat):
-            layer = first if r == 0 else init_layer(gen, cfg, spec, device)
+        tree_map(lambda s, a: s[0].copy_(a), stack, first)
+        del first  # before the next repeat is drawn
+        for r in range(1, gspec.repeat):
+            layer = init_layer(gen, cfg, spec, device)
             tree_map(lambda s, a: s[r].copy_(a), stack, layer)
             del layer
-        del first
         slot_params.append(stack)
     return {"slots": tuple(slot_params)}
 
@@ -175,10 +210,11 @@ def init_group_cache(cfg: ModelConfig, gspec: GroupSpec, batch: int,
 
 def apply_group(params: Params, cfg: ModelConfig, gspec: GroupSpec,
                 x: torch.Tensor, ctx: dict, cache: Params | None
-                ) -> tuple[torch.Tensor, Params | None]:
-    """Run the group's repeats in order.  ``cache`` (stacked over the
-    repeat axis for every slot, shared ones included) is updated in place
-    through per-repeat views and returned.
+                ) -> tuple[torch.Tensor, Params | None, dict]:
+    """Run the group's repeats in order: (x, cache, aux), aux summed over
+    the group's layers.  ``cache`` (stacked over the repeat axis for every
+    slot, shared ones included) is updated in place through per-repeat
+    views and returned.
 
     Each stacked param is unbound into its repeats once, so the backward
     stacks each param's gradient once rather than adding a stack-sized
@@ -190,22 +226,26 @@ def apply_group(params: Params, cfg: ModelConfig, gspec: GroupSpec,
     slots = [p if spec.shared else _unstack(p, gspec.repeat)
              for spec, p in zip(gspec.pattern, params["slots"])]
 
-    def body(x: torch.Tensor, r: int) -> torch.Tensor:
+    def body(x: torch.Tensor, r: int):
+        aux = dict(ZERO_AUX)
         for i, spec in enumerate(gspec.pattern):
             p = slots[i] if spec.shared else slots[i][r]
             c = None
             if cache is not None and cache["slots"][i]:
                 c = tree_map(lambda a: a[r], cache["slots"][i])
-            x, _ = apply_layer(p, cfg, spec, x, ctx, c)
-        return x
+            x, _, la = apply_layer(p, cfg, spec, x, ctx, c)
+            aux = {k: aux[k] + la[k] for k in aux}
+        return x, aux
 
+    aux = dict(ZERO_AUX)
     for r in range(gspec.repeat):
         if training and cfg.remat in _REMAT:
-            x = checkpoint(body, x, r, use_reentrant=False,
-                           **_REMAT[cfg.remat])
+            x, ra = checkpoint(body, x, r, use_reentrant=False,
+                               **_REMAT[cfg.remat])
         else:
-            x = body(x, r)
-    return x, cache
+            x, ra = body(x, r)
+        aux = {k: aux[k] + ra[k] for k in aux}
+    return x, cache, aux
 
 
 def _unstack(tree: Params, n: int) -> list[Params]:

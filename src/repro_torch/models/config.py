@@ -138,14 +138,13 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Params active per token (MoE counts top_k+shared experts only)."""
-        total = self.param_count()
         if self.moe is None:
-            return total
+            return self.param_count()
+        leaves = self._meta_params()
         frac = 1.0 - (self.moe.top_k / self.moe.num_experts)
-        inactive = sum(int(leaf.numel() * frac)
-                       for path, leaf in self._meta_params()
+        inactive = sum(int(leaf.numel() * frac) for path, leaf in leaves
                        if "['experts']" in path)
-        return total - inactive
+        return sum(leaf.numel() for _, leaf in leaves) - inactive
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -14,9 +14,10 @@ Params = Any
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             device: torch.device) -> Params:
+             device: torch.device, d_ff: int | None = None) -> Params:
+    """``d_ff`` replaces ``cfg.d_ff`` (an MoE layer's shared experts)."""
     dt = dtype_of(cfg)
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.gated_mlp and cfg.fuse_glu:
         # (D, 2, F) layout: F stays contiguous after the split
         return {"wgu": dense_init(gen, d, (2, f), dt, device),

@@ -15,7 +15,13 @@ place: ``prefill`` and ``decode_step`` return the cache they were given.
 MusicGen-style multi-codebook streams (``num_codebooks`` K): tokens are
 (B,S,K), the embeddings (K,V,D) are summed over the codebooks, the head
 (K,D,V) gives (B,S,K,V) logits and the loss averages over the K streams.
-Not ported yet: image embeddings (VLM).
+VLM image embeddings (B, N_img, vision_dim), the output of a stubbed
+vision frontend, go to the cross-attention layers through ``forward``,
+``forward_loss`` and ``prefill``; a decode step reads their keys and
+values from the cache (``k``/``v``, with ``filled``).  MLA slots cache
+``ckv``/``krope``; ``mla_absorbed`` picks MLA's weight-absorbed form.
+The aux dict holds the MoE layers' ``moe_aux_loss`` and ``moe_dropped``
+summed over every layer (zeros without MoE).
 """
 from __future__ import annotations
 
@@ -32,15 +38,9 @@ from repro_torch.models.config import ModelConfig, dtype_named, dtype_of
 Params = Any
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.vision_dim:
-        raise NotImplementedError("image-embedding models: not ported yet")
-
-
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: torch.device | str | None = None) -> Params:
     """Random params from ``gen``, which must live on ``device``."""
-    _check_supported(cfg)
     device = resolve(device)
     dt = dtype_of(cfg)
     k = cfg.num_codebooks
@@ -71,7 +71,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    _check_supported(cfg)
     if cfg.num_codebooks:
         # tokens (B,S,K): the sum of the K codebooks' embeddings
         book = torch.arange(cfg.num_codebooks, device=tokens.device)
@@ -98,36 +97,48 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _run(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
          caches: list | None):
+    """The groups and the final norm: (x, caches, aux), aux the sums of
+    every layer's MoE statistics (``blocks.ZERO_AUX``'s floats where the
+    model has no MoE)."""
+    aux = dict(blocks.ZERO_AUX)
     for gi, gspec in enumerate(cfg.groups):
         c = None if caches is None else caches[gi]
-        x, _ = blocks.apply_group(params["groups"][gi], cfg, gspec, x, ctx, c)
+        x, _, ga = blocks.apply_group(params["groups"][gi], cfg, gspec, x,
+                                      ctx, c)
+        aux = {k: aux[k] + ga[k] for k in aux}
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    return x, caches
+    return x, caches, aux
 
 
-def _aux(device) -> dict:
-    # the MoE statistics of the JAX model; no ported layer produces them
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    return {"moe_aux_loss": zero, "moe_dropped": zero.clone()}
+def _aux_tensors(aux: dict, device) -> dict:
+    """The MoE statistics as fp32 scalars on ``device``, zeros where the
+    model has no MoE, as the JAX model returns them."""
+    return {k: v if torch.is_tensor(v) else
+            torch.zeros((), dtype=torch.float32, device=device)
+            for k, v in aux.items()}
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            image_embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, dict]:
     """Training forward. tokens: (B,S) or (B,S,K). Returns (logits,
     aux)."""
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens)
-    ctx = {"positions": _positions(b, s, x.device)}
-    x, _ = _run(params, cfg, x, ctx, None)
-    return _head(params, cfg, x), _aux(x.device)
+    ctx = {"positions": _positions(b, s, x.device),
+           "image_embeds": image_embeds, "moe_stats": True}
+    x, _, aux = _run(params, cfg, x, ctx, None)
+    return _head(params, cfg, x), _aux_tensors(aux, x.device)
 
 
 def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                 labels: torch.Tensor,
+                 image_embeds: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, dict]:
     """Training forward + mean token cross-entropy.  tokens, labels: (B,S),
     or (B,S,K) with K codebooks (the mean runs over the streams too).
 
@@ -137,8 +148,9 @@ def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     in fp32, not a gather over the vocab axis."""
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens)
-    ctx = {"positions": _positions(b, s, x.device)}
-    x, _ = _run(params, cfg, x, ctx, None)
+    ctx = {"positions": _positions(b, s, x.device),
+           "image_embeds": image_embeds, "moe_stats": True}
+    x, _, aux = _run(params, cfg, x, ctx, None)
     logits = _head(params, cfg, x)
     lse = torch.logsumexp(logits.to(dtype_named(cfg.loss_dtype)),
                           dim=-1).float()
@@ -154,24 +166,28 @@ def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         gold = (x.float() * rows.float()).sum(-1)
     if cfg.final_softcap:
         gold = soft_cap(gold, cfg.final_softcap)
-    return (lse - gold).mean(), _aux(x.device)
+    return (lse - gold).mean(), _aux_tensors(aux, x.device)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: list) -> tuple[torch.Tensor, list]:
+            cache: list, image_embeds: torch.Tensor | None = None,
+            mla_absorbed: bool = False) -> tuple[torch.Tensor, list]:
     """Fill the cache with a prompt; returns (last-token logits, cache)."""
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens)
-    ctx = {"positions": _positions(b, s, x.device)}
-    x, cache = _run(params, cfg, x, ctx, cache)
+    ctx = {"positions": _positions(b, s, x.device),
+           "image_embeds": image_embeds, "mla_absorbed": mla_absorbed}
+    x, cache, _ = _run(params, cfg, x, ctx, cache)
     return _head(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: list, pos: torch.Tensor) -> tuple[torch.Tensor, list]:
+                cache: list, pos: torch.Tensor,
+                mla_absorbed: bool = False) -> tuple[torch.Tensor, list]:
     """tokens: (B,1) or (B,1,K); pos: (B,) absolute position of the
     token."""
     x = _embed(params, cfg, tokens)
-    ctx = {"positions": pos[:, None]}
-    x, cache = _run(params, cfg, x, ctx, cache)
+    ctx = {"positions": pos[:, None], "image_embeds": None,
+           "mla_absorbed": mla_absorbed}
+    x, cache, _ = _run(params, cfg, x, ctx, cache)
     return _head(params, cfg, x), cache

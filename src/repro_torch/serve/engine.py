@@ -96,7 +96,11 @@ class ServingEngine:
     :meth:`stop` re-raises the error.  A multi-codebook config (musicgen)
     is refused: requests carry one token stream, as in the JAX engine,
     which cannot serve one either; such a model is served through
-    ``prefill`` and ``decode_step`` directly.
+    ``prefill`` and ``decode_step`` directly.  So is an image-embedding
+    (VLM) config, as the JAX engine refuses it: requests carry no image.
+    MoE configs are served as they are: the padding of a prefill routes
+    through the experts, and the requests of one decode step compete for
+    the experts' capacity, as in the JAX engine.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, max_batch: int = 8,
@@ -108,6 +112,10 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{cfg.name}: the engine serves one token stream a request, "
                 f"not {cfg.num_codebooks} codebooks")
+        if cfg.vision_dim:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine's requests carry no image "
+                f"embeddings")
         self.cfg = cfg
         self.params = params
         self.device = resolve(device)

@@ -28,7 +28,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_loss_fn(cfg: ModelConfig):
     def loss_fn(params, batch):
         loss, aux = model_lib.forward_loss(params, cfg, batch["tokens"],
-                                           batch["labels"])
+                                           batch["labels"],
+                                           batch.get("image_embeds"))
         total = loss + aux["moe_aux_loss"]
         metrics = {"loss": loss, "moe_aux_loss": aux["moe_aux_loss"],
                    "moe_dropped": aux["moe_dropped"]}

@@ -910,3 +910,108 @@ def test_xlstm_and_musicgen_on_card_match_cpu(cuda, arch):
     torch.testing.assert_close(loss_g, loss_c, rtol=2e-4, atol=2e-4)
     for a, b in zip(g_g, g_c):
         assert float((a - b).norm() / b.norm()) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("b,t,h,kv,window", [
+    (8, 1024, 48, 8, None),                          # grok-1's decode step
+    (3, 300, 12, 2, 100),
+])
+def test_decode_kernel_at_g6(cuda, dtype, cap, b, t, h, kv, window):
+    """G = 6 (grok-1's 48 query heads over 8 kv heads) at head dim 128,
+    with and without grok-1's softcap 30: within tolerance of the plain
+    version, free of NaN and bit-equal twice."""
+    hd = 128
+    rng = np.random.default_rng(t + h)
+    q = _randn(rng, (b, 1, h, hd), dtype, cuda)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    lengths = torch.from_numpy(rng.integers(1, t + 1, size=(b,)).astype(
+        np.int32)).to(cuda)
+    kw = dict(lengths=lengths, window=window, softcap=cap, scale=hd ** -0.5)
+    got = da.decode_attention(q, k, v, **kw)
+    again = da.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, again)
+    _close(got, ref.decode_attention(q, k, v, **kw), dtype)
+
+
+def test_decode_g6_is_built(cuda):
+    """The wrapper's rule and the C switch both take (128, 6)."""
+    from repro_torch.kernels import build
+    built = build.entry(da.NAME, da.NAME + "_built")
+    assert da.instantiated(128, 6)
+    for dtype in ("float32", "bfloat16"):
+        assert built(build.DTYPE_CODES[dtype], 128, 6) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,causal,cap", [
+    (1, 300, 300, 48, 8, True, 30.0),    # grok-1's prefill: G = 6, cap 30
+    (2, 77, 77, 12, 2, True, 30.0),
+    (2, 1, 2048, 64, 8, False, None),    # cross-attention, a decode step
+    (1, 512, 2048, 64, 8, False, None),  # cross-attention, a prefill
+])
+def test_flash_kernel_at_g6_and_cross_attention(cuda, dtype, b, s, t, h, kv,
+                                                causal, cap):
+    """The flash forward at G = 6 with a softcap, and non-causal at S = 1
+    and S = 512 queries against T = 2048 image tokens, head dim 128."""
+    hd = 128
+    rng = np.random.default_rng(s + t)
+    q = _randn(rng, (b, s, h, hd), dtype, cuda)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    kw = dict(causal=causal, softcap=cap, scale=hd ** -0.5)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref.flash_attention(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("arch,widths", [
+    ("grok-1-314b", dict(d_model=128, num_heads=12, num_kv_heads=2,
+                         head_dim=128, d_ff=256)),          # G = 6, cap 30
+    ("deepseek-v3-671b", {}),          # MLA in plain torch, its norms
+    ("llama-3.2-vision-90b", dict(d_model=128, num_heads=4, num_kv_heads=2,
+                                  head_dim=128, d_ff=256)),
+])
+def test_moe_mla_vlm_on_card_match_cpu(cuda, arch, widths):
+    """Small fp32 models of the three families (a nonzero router bias and
+    cross-attention gate): prefill (with image embeddings for the VLM) and
+    one decode step through the kernels match the CPU plain path, with
+    one flash a causal attention layer at the prefill and one decode a
+    step, and one non-causal flash a cross-attention layer in each."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.models.common import tree_map, tree_paths
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **widths)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for path, a in tree_paths(params):
+        if a.dim() <= 1:  # norm scales, biases and gates: not 0
+            a.add_(torch.rand(a.shape, generator=gen) + 0.5)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41)).astype(
+        np.int32))
+    img = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32))
+        if cfg.vision_dim else None)
+    n = {kind: sum(sum(s.kind == kind for s in g.pattern) * g.repeat
+                   for g in cfg.groups) for kind in ("attn", "cross_attn")}
+    outs, launched = [], []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        cache = model.init_cache(cfg, 2, 48, device=dev)
+        c0 = (fa.flash_attention.launches, da.decode_attention.launches)
+        pre, cache = model.prefill(p, cfg, toks[:, :-1].to(dev), cache,
+                                   None if img is None else img.to(dev))
+        dec, _ = model.decode_step(p, cfg, toks[:, -1:].to(dev), cache,
+                                   torch.full((2,), 40, dtype=torch.int32,
+                                              device=dev))
+        launched.append((fa.flash_attention.launches - c0[0],
+                         da.decode_attention.launches - c0[1]))
+        outs.append((pre.cpu(), dec.cpu()))
+    assert launched[1] == (n["attn"] + 2 * n["cross_attn"], n["attn"])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)

@@ -478,7 +478,7 @@ def test_decode_wrapper_passes_splits_where_signatures_declare():
 
 
 @pytest.mark.parametrize("hd,g", [(hd, g) for hd in (32, 64, 80, 128, 256)
-                                  for g in (1, 2, 4, 7, 8, 16)])
+                                  for g in (1, 2, 4, 6, 7, 8, 16)])
 def test_decode_wrapper_refuses_pairs_not_built(hd, g):
     """The wrapper (with the library and the CUDA checks mocked out)
     launches every (head_dim, G) pair the kernel is built for, G = 7
@@ -533,8 +533,11 @@ def test_flash_wrappers_take_head_dim_256_forward_only(hd):
             mock.patch.object(build, "check_operand"), \
             mock.patch.object(torch.cuda, "current_stream",
                               return_value=stream):
+        fa.flash_attention.shapes.clear()
         fa.flash_attention(q, k, k)
         assert calls.pop()[11] == hd
+        # the forward's launches by (b, s, t, h, kv, hd)
+        assert fa.flash_attention.shapes == {(1, 64, 64, 4, 2, hd): 1}
         n = fa.flash_attention_bwd.launches
         if hd == 256:
             with pytest.raises(ValueError, match="head_dim 256 not in"):
@@ -545,6 +548,7 @@ def test_flash_wrappers_take_head_dim_256_forward_only(hd):
             assert calls.pop()[16] == hd
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
+    fa.flash_attention.shapes.clear()
 
 
 # ---------------------------------------------------------------------------
