@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --rmsnorm-times [--root DIR]
     python3 chip_smoke.py --ssd-times [--root DIR]
+    python3 chip_smoke.py --flash-bwd-times [--root DIR]
     python3 chip_smoke.py --serving-runtime [--root DIR]
     python3 chip_smoke.py --parity-sweep
     python3 chip_smoke.py --logits-gap
@@ -13,16 +14,17 @@ The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
 (``rmsnorm_times``); the third only times DIR's SSD forward and backward
 at zamba2's training and serving shapes, the backward split by kernel
-(``ssd_times``); the fourth only serves llama3.2-1b's 16 requests
-through DIR's engine and prints the runtime's cost a call
-(``serving_runtime``).  Run on two checkouts in turns (parent, change,
-change, parent) in one call, any of the three compares them on one card.
-The fifth only measures how far zamba2's bf16 gradients move when one op
-runs its plain version, and how far each route lies from fp32
-(``parity_sweep``).  The sixth only measures gemma2-27b's kernel-vs-plain
-logits gap at full width by depth (4 to 46 layers), with its softcaps on
-and off, and at full depth with one op at a time on its plain version
-(``logits_gap``).  The seventh only trains xlstm-350m as the training
+(``ssd_times``); the fourth only times DIR's bf16 flash backward at
+the training cells' shapes (``flash_bwd_times``); the fifth only serves
+llama3.2-1b's 16 requests through DIR's engine and prints the runtime's
+cost a call (``serving_runtime``).  Run on two checkouts in turns
+(parent, change, change, parent) in one call, any of the four compares
+them on one card.  The sixth only measures how far zamba2's bf16
+gradients move when one op runs its plain version, and how far each
+route lies from fp32 (``parity_sweep``).  The seventh only measures
+gemma2-27b's kernel-vs-plain logits gap at full width by depth (4 to 46
+layers), with its softcaps on and off, and at full depth with one op at
+a time on its plain version (``logits_gap``).  The eighth only trains xlstm-350m as the training
 slice does at its published widths with one and with all three of its
 (7 mLSTM + 1 sLSTM) repeats, and prints how far each depth's loss falls
 (``xlstm_depth``).  The first form:
@@ -30,8 +32,9 @@ slice does at its published widths with one and with all three of its
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (timed), the registers and spills of the main
-   instantiations (the flash forward at head dim 256 in bf16 and fp32,
-   decode at (256, G), (128, 7) and (128, 6)), and the count of HGMMA
+   instantiations (the flash forward and backward at head dim 256 in bf16
+   and fp32, decode at (256, G), (128, 7) and (128, 6)), and the count of
+   HGMMA
    (tensor-core)
    instructions in each bf16 flash and SSD kernel's SASS (the SSD
    backward's too).
@@ -50,12 +53,14 @@ slice does at its published widths with one and with all three of its
    backward (fp32 1e-4, bf16 2e-2; bit-equal twice) at the sweep shapes
    and at every call's shape (decode steps, prefills, the training step),
    the flash forward's log-sum-exp (fp32 2e-5, bf16 2e-2) and the flash
-   backward (fp32 1e-4, bf16 5e-2).  Decode and SSD run twice and must be
-   bit-equal; decode must be free of NaN, also with lengths at and around
-   a split boundary and a window that empties whole splits.  Both flash
-   wrappers must refuse a query row with no live key; the flash backward
-   must refuse head dim 256, and decode head dim 256 with G = 16 (neither
-   is built).  The SSD backward
+   backward (fp32 1e-4, bf16 5e-2; also at head dim 256, G 6 with cap 30,
+   G 7, a 4096 window at S = 8192 and non-causal S = T = 2048, in both
+   dtypes, and at the wide training cells' shapes in bf16).  Decode, SSD
+   and the flash backward run twice and must be bit-equal; decode must be
+   free of NaN, also with lengths at and around a split boundary and a
+   window that empties whole splits.  Both flash wrappers must refuse a
+   query row with no live key; decode must refuse head dim 256 with G =
+   16 (not built).  The SSD backward
    against its plain version (the exact reverse recurrence) on the
    sweep, at zamba2's widths with and without h0, a ragged S and the
    training shape (4, 2048, 80, 64, 64): twice bit-equal, every output
@@ -180,7 +185,23 @@ slice does at its published widths with one and with all three of its
    ``LOSS_MARGIN_OF``, and stay above an unseen batch's, by
    ``HELD_OUT_SHARE_OF``; exact launches; peak memory, step time,
    tokens/s, MFU from ``param_count()``; a profile of one step; for
-   xLSTM the sLSTM scan's share of the step, timed alone).
+   xLSTM the sLSTM scan's share of the step, timed alone).  Then the
+   families that serve at full width train the same way at a depth cut
+   (``WIDE_TRAIN``: whole repeats of each pattern, every width as
+   published, params on the card equal to ``param_count()``; remat
+   "full"): gemma-7b at 8 layers (head dim 256 through the flash
+   backward), gemma2-27b at 2 (a local and a global layer) on 1 x 8192
+   tokens, where the 4096 window masks, deepseek-coder-33b at 4 (G 7),
+   grok-1-314b at 1 (Adafactor, updated in slices of its stacked leaves;
+   G 6 with cap 30; the MoE backward under deterministic algorithms) and
+   llama-3.2-vision-90b at 5 (4 self + 1 cross; Adafactor; 2048 image
+   tokens of 7680 a sequence, so its cross layer runs the non-causal flash
+   backward): gradient parity in bf16 (grok's with the kernel path's
+   router choices pinned to the plain path's, the unpinned figures
+   printed; the VLM's with its gates opened), the loss falls 0.5 nat and
+   an unseen batch's stays 0.5 above, exact launches (the flash backward
+   by mask: local and global, self and cross), step time, MFU (N =
+   ``active_param_count()`` for grok), peak memory and a profile.
    The runtime's trace (``repro_torch.core.tracing``): the llama engine's
    Cluster and both coordinators' run with ``tracing`` on; each prints
    the six segments of every call's span (median and p95 in us, by kind
@@ -190,7 +211,9 @@ slice does at its published widths with one and with all three of its
    PyTorch library call's (where one computes the same function: SDPA,
    or for a softcapped row, which SDPA cannot take, a compiled
    ``flex_attention`` with the tanh cap as its score_mod, its error
-   against the plain version given beside it) and the card's bound; the decode rows also give the host's n_split, and the
+   against the plain version given beside it; for the flash backward
+   their autograd backward) and the card's bound; the decode rows also
+   give the host's n_split, and the
    rmsnorm rows the call that launches them (a decode step, a prefill, a
    training step or a coordinator's microbatch, or the VLM's
    cross-attention norms), its norms per call at
@@ -318,6 +341,26 @@ LONG_PROMPT, LONG_CACHE, LONG_LAYERS = 4608, 8192, 4
 TRAIN_ARCH, TRAIN_KEY = "llama3.2-1b", "llama3.2-1b-train"
 ZTRAIN_ARCH, ZTRAIN_KEY = "zamba2-2.7b", "zamba2-2.7b-train"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+# the families that serve at full width and train at a depth cut (whole
+# repeats of each config's pattern, every width as published; full depth
+# does not fit one card): arch -> (layers at the cut, optimizer).  The VLM
+# takes Adafactor, as grok's config does: at 6.38e9 params AdamW's fp32
+# moments alone are 51 GB
+WIDE_TRAIN = {"gemma-7b": (8, "adamw"), "gemma2-27b": (2, "adamw"),
+              "deepseek-coder-33b": (4, "adamw"), GROK: (1, "adafactor"),
+              VISION: (5, "adafactor")}
+# their peak learning rate (TRAIN_OPT's otherwise): at TRAIN_OPT's 1e-3
+# deepseek-coder's, grok's and the VLM's loss rose again from the third
+# step and ended 0.4 to 2.1 nat above its first (d 6144 to 8192, on an
+# H100; PERF.md section 6)
+WIDE_LR = 2e-4
+# runs of a wide training cell's plain attention timed in phase 4 (25 for
+# every other row)
+WIDE_PLAIN_ITERS = 5
+# (batch, seq) of a training step where it is not TRAIN_BATCH x TRAIN_SEQ:
+# gemma2-27b trains at its context, where its local layers' 4096 window
+# masks (it never does at S = 2048)
+TRAIN_SHAPE = {"gemma2-27b": (1, 8192)}
 TRAIN_OPT = dict(lr=1e-3, warmup=2, weight_decay=0.0)
 LOSS_MARGIN = 0.5        # nats the loss must fall over the 8 steps
 # where an arch's margin is another: xlstm-350m's bf16 gradients are as
@@ -344,7 +387,8 @@ PARITY_LOSS_REL, PARITY_GRAD_REL_L2 = 1e-2, 5e-2
 # (the median leaf), in the JAX package's model as in the port's
 # (tests/test_torch_xlstm.py::test_bf16_sensitivity_matches_jax_at_full_width)
 PARITY_DTYPE = {"llama3.2-1b": "bfloat16", "zamba2-2.7b": "float32",
-                XLSTM_ARCH: "float32", MUSIC_ARCH: "bfloat16"}
+                XLSTM_ARCH: "float32", MUSIC_ARCH: "bfloat16",
+                **{arch: "bfloat16" for arch in WIDE_TRAIN}}
 # the dtype of a serving slice's kernel-vs-plain logits where it is not
 # the model's: xLSTM's exponential gates amplify one bf16 ulp in a norm
 # past LOGITS_REL_TOL (its bf16 gap is printed beside), in the JAX
@@ -360,6 +404,7 @@ LOGITS_DTYPE = {XLSTM_ARCH: "float32"}
 ABSORBED_CUT = {DSV3: (1, 1)}
 RESTART_TOL = 1e-6       # tests/test_train_serve_ft.py:83-103
 XTRAIN_KEY, MTRAIN_KEY = f"{XLSTM_ARCH}-train", f"{MUSIC_ARCH}-train"
+WIDE_KEYS = {arch: f"{arch}-train" for arch in WIDE_TRAIN}
 COORD_KEY = "llama3.2-1b-coordinator"
 ZCOORD_KEY = "zamba2-2.7b-coordinator"
 COORD_EXECUTORS, COORD_MICRO, COORD_STEPS = 4, 4, 2
@@ -416,7 +461,23 @@ RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
              (VISION, "decode step q_norm", MAX_BATCH * 64, (128,)),
              (VISION, "prefill q_norm", MAX_BATCH * VISION_PROMPT * 64,
               (128,)),
-             (VISION, "prefill k_norm", MAX_BATCH * CROSS_T * 8, (128,))]
+             (VISION, "prefill k_norm", MAX_BATCH * CROSS_T * 8, (128,)),
+             # the wide training cells' steps; the VLM's cross-attention
+             # norms over head_dim at a row a query head (q_norm) and a
+             # row an image token's kv head (k_norm)
+             (WIDE_KEYS["gemma-7b"], "training step",
+              TRAIN_BATCH * TRAIN_SEQ, (3072,)),
+             (WIDE_KEYS["gemma2-27b"], "training step", 8192, (4608,)),
+             (WIDE_KEYS["deepseek-coder-33b"], "training step",
+              TRAIN_BATCH * TRAIN_SEQ, (7168,)),
+             (WIDE_KEYS[GROK], "training step", TRAIN_BATCH * TRAIN_SEQ,
+              (6144,)),
+             (WIDE_KEYS[VISION], "training step", TRAIN_BATCH * TRAIN_SEQ,
+              (8192,)),
+             (WIDE_KEYS[VISION], "training step q_norm",
+              TRAIN_BATCH * TRAIN_SEQ * 64, (128,)),
+             (WIDE_KEYS[VISION], "training step k_norm",
+              TRAIN_BATCH * CROSS_T * 8, (128,))]
 # rows of the serving forward's sweep in --rmsnorm-times: a decode step,
 # prompts of 32-512 tokens, and on to the training step's, across the
 # forward's change of plan (kernels/rmsnorm.py FEW_ELEMS: past 409, 819
@@ -456,6 +517,17 @@ SLICES = [
     # (run_vision_slice)
     (VISION, (100, 8192, 64, 8, 128, 28672, 128256, "bfloat16", None), 10),
 ]
+# the flash backward at the wide training cells' shapes, cut in batch and
+# heads (both dtypes; the plain fp32 backward holds (B, H, S, T) fp32
+# matrices): head dim 256 (gemma-7b), G 6 with grok's cap 30, G 7
+# (deepseek-coder), gemma2's window 4096 at S = 8192 with its cap 50 and
+# scale 1/12, and the VLM's non-causal cross-attention at S = T = 2048
+FLASH_BWD_SWEEP_WIDE = [(2, 300, 4, 2, 256, True, None, None),
+                        (1, 512, 16, 16, 256, True, None, None),
+                        (1, 512, 48, 8, 128, True, None, 30.0),
+                        (1, 512, 56, 8, 128, True, None, None),
+                        (1, 8192, 4, 2, 128, True, 4096, 50.0, 1 / 12),
+                        (1, 2048, 64, 8, 128, False, None, None)]
 # each dense arch's attention as its layers call the kernels: (heads, kv
 # heads, head dim, window, softcap, scale); gemma2's local layers' window
 # never masks a prompt of at most 512 tokens or a 1024-position cache
@@ -704,23 +776,16 @@ def _check_flash_refuses_empty_rows():
 
 
 def _check_dense_refusals():
-    """What the dense family's kernels are not built for: the flash
-    backward at head_dim 256 (gemma-7b does not train yet) and decode at
-    head_dim 256 with G = 16.  Each wrapper must raise a ValueError that
+    """What the dense family's kernels are not built for: decode at
+    head_dim 256 with G = 16.  The wrapper must raise a ValueError that
     names it, and launch nothing."""
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    q = torch.zeros((1, 64, 4, 256), dtype=torch.bfloat16, device="cuda")
     k = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device="cuda")
-    o, lse = fa.flash_attention_fwd(q, k, k)
     q1 = torch.zeros((1, 1, 32, 256), dtype=torch.bfloat16, device="cuda")
     lengths = torch.ones(1, dtype=torch.int32, device="cuda")
-    calls = (("flash_attention_bwd at head_dim 256", fa.flash_attention_bwd,
-              "head_dim 256", lambda: fa.flash_attention_bwd(q, k, k, o, lse,
-                                                             q)),
-             ("decode_attention at head_dim 256, G = 16", da.decode_attention,
+    calls = (("decode_attention at head_dim 256, G = 16", da.decode_attention,
               "group size 16", lambda: da.decode_attention(
-                  q1, k, k, lengths=lengths)))
+                  q1, k, k, lengths=lengths)),)
     for what, wrapper, says, call in calls:
         n = wrapper.launches
         try:
@@ -788,29 +853,38 @@ TRAINING_CALLS = ("training step", "microbatch")
 
 
 def _rms_kinds(call):
-    """The rmsnorm kernels a call launches: a training step or a
-    coordinator's microbatch both."""
-    return (("rms_fwd", "rms_bwd") if call in TRAINING_CALLS
+    """The rmsnorm kernels a call launches: a training step (the VLM's
+    cross-attention norms in one too) or a coordinator's microbatch
+    both."""
+    return (("rms_fwd", "rms_bwd") if call.startswith(TRAINING_CALLS)
             else ("rms_fwd",))
 
 
 def _check_flash_bwd(rng, dtype, cases, out, key):
     """The forward's LSE and the backward kernel against the plain
-    versions, both given the kernel forward's output and LSE."""
+    versions, both given the kernel forward's output and LSE, and the
+    backward bit-equal twice.  A case is (b, s, h, kv, hd, causal,
+    window, cap[, scale]) with T = S; the scale defaults to hd^-0.5."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     name = str(dtype).removeprefix("torch.")
     tol, btol = TOL[name], FLASH_BWD_TOL[name]
-    for b, s, h, kv, hd, causal, window, cap in cases:
+    for b, s, h, kv, hd, causal, window, cap, *scale in cases:
+        t0 = time.perf_counter()
         q = _randn(rng, (b, s, h, hd), dtype)
         k = _randn(rng, (b, s, kv, hd), dtype)
         v = _randn(rng, (b, s, kv, hd), dtype)
         do = _randn(rng, (b, s, h, hd), dtype)
         kw = dict(causal=causal, window=window, softcap=cap,
-                  scale=1.0 / np.sqrt(hd))
+                  scale=scale[0] if scale else 1.0 / np.sqrt(hd))
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_attention_bwd {dtype} "
+                                 f"{(b, s, h, kv, hd)}: two calls differ")
+        del again
         what = f"flash_attention {dtype} {(b, s, h, kv, hd)}"
         want_o, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
         err_o = _check_close(what + " out", o, want_o, tol)
@@ -823,10 +897,50 @@ def _check_flash_bwd(rng, dtype, cases, out, key):
         print(f"flash_attention_bwd {name:8s} b={b} s={s} h={h} kv={kv} "
               f"hd={hd} causal={causal} window={window} cap={cap}: max abs "
               f"err lse {err_l:.3e} (tol {tol}), dq/dk/dv {err:.3e} (tol "
-              f"{btol})")
+              f"{btol}); bit-equal twice; {time.perf_counter() - t0:.1f} s")
         if key:
             out["flash:" + key] = (q, k, v, kw, err_o)
             out["flash_bwd:" + key] = ((q, k, v, o, lse, do), kw, err)
+
+
+def _to(tree, device):
+    """``tree`` (tuples, lists and dicts of tensors and plain values) with
+    every tensor moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+def wide_flash_bwd_cases():
+    """The wide training cells' flash calls, keyed as ``kernel_numbers``
+    reads them (cell key, then the call where a step makes two kinds):
+    (b, s, h, kv, hd, causal, window, cap, scale) at each cell's (batch,
+    seq), with T = S (the VLM's cross-attention: S = 2048 queries against
+    its 2048 image tokens)."""
+    cases = {}
+    for arch, key in WIDE_KEYS.items():
+        b, s = _train_shape(arch)
+        if arch == VISION:
+            h, kv, hd = 64, 8, 128
+            assert s == CROSS_T
+            cases[f"{key}:self"] = [(b, s, h, kv, hd, True, None, None,
+                                     hd ** -0.5)]
+            cases[f"{key}:cross"] = [(b, s, h, kv, hd, False, None, None,
+                                      hd ** -0.5)]
+            continue
+        h, kv, hd, window, cap, scale = DENSE_ATTN[arch]
+        if window:  # gemma2: a local layer and a global one
+            cases[f"{key}:local"] = [(b, s, h, kv, hd, True, window, cap,
+                                      scale)]
+            cases[f"{key}:global"] = [(b, s, h, kv, hd, True, None, cap,
+                                       scale)]
+        else:
+            cases[key] = [(b, s, h, kv, hd, True, None, cap, scale)]
+    return cases
 
 
 def check_kernels():
@@ -847,7 +961,8 @@ def check_kernels():
                                     for i, c in enumerate(SSD_SWEEP)]
                        + [(1, 37, 4, 128, 128, True, True)], out, None)
         _check_rmsnorm(rng, dtype, RMS_SWEEP, out, None)
-        _check_flash_bwd(rng, dtype, FLASH_SWEEP[:5], out, None)
+        _check_flash_bwd(rng, dtype, FLASH_SWEEP[:5] + FLASH_BWD_SWEEP_WIDE,
+                         out, None)
         if not bf16:
             continue
         # the slices' shapes: llama (hd 64, GQA 32/8), zamba2 (hd 80, 32/32)
@@ -937,6 +1052,11 @@ def check_kernels():
                                     None)], out, "decode:" + MUSIC_ARCH)
         _check_flash_bwd(rng, dtype, [(TRAIN_BATCH, TRAIN_SEQ, 24, 24, 64,
                                        True, None, None)], out, MTRAIN_KEY)
+        # the wide training cells' attention forward and backward, as
+        # their layers call them (gemma2's local and global layers, the
+        # VLM's self- and cross-attention)
+        for key, cases in wide_flash_bwd_cases().items():
+            _check_flash_bwd(rng, dtype, cases, out, key)
         # llama-3.2-vision (64/8 heads, G = 8, hd 128): the self-attention
         # layers' batched 8 x 512 prefill and decode over 1024 positions;
         # the cross-attention layers' non-causal flash against the 2048
@@ -1564,6 +1684,11 @@ def _flex_attention(qt, kt, vt, kw, lengths=None, compiled=True):
             m = kv_idx < n
             return m & (kv_idx >= n - window) if window else m
         mask = create_block_mask(mask_mod, b, None, s, t, device=qt.device)
+    # each softcapped row compiles a graph of its own; past dynamo's
+    # default limit of 8 recompilations a call would run eagerly, and time
+    # a materialised (S, T) score matrix
+    import torch._dynamo
+    torch._dynamo.config.recompile_limit = 64
     fn = (torch.compile(flex_attention, dynamic=False) if compiled
           else flex_attention)
     return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
@@ -1752,19 +1877,31 @@ def _rms_bwd_row(args, err):
 
 def _flash_bwd_row(args, kw, err):
     """Bytes: q, k, v, o, dO and the fp32 LSE read once, dq, dk, dv
-    written once.  Operations: 5 products of 2 hd FLOPs a live (causal)
-    pair.  The library call is the autograd backward of SDPA."""
+    written once.  Operations: 5 products of 2 hd FLOPs a live pair
+    (q_offset 0, S == T: causal with each row's window counted, or every
+    pair).  The library call is the autograd backward of SDPA, or of a
+    compiled ``flex_attention`` where softcapped (``_flex_attention``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v, o, lse, do = args
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    pairs = s * (s + 1) // 2                # causal, q_offset 0, S == T
+    if kw["causal"]:
+        w = min(kw["window"] or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    else:
+        assert not kw["window"]
+        pairs = s * s
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)
+    if kw["softcap"]:
+        out = _flex_attention(qt, kt, vt, kw)()
+    else:
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"], scale=kw["scale"],
+            enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
+    products = 8 if hd > 128 else 7
     return dict(
         name="flash_attention_bwd", shape=[b, s, h, kv, hd], err=err,
         flops=10 * hd * pairs * b * h,
@@ -1773,13 +1910,15 @@ def _flash_bwd_row(args, kw, err):
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:114",
         note="no Pallas counterpart: the JAX package differentiates its "
-             "jnp oracle; this is the gradient of _fa_kernel; its two "
-             "passes compute S and dP twice, 7 products a pair against "
-             "the bound's 5",
+             "jnp oracle; this is the gradient of _fa_kernel; its passes "
+             f"compute S and dP more than once, {products} products a pair "
+             "against the bound's 5",
         kernel=lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
         plain=lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, **kw),
         library=lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                            retain_graph=True))
+                                            retain_graph=True),
+        library_call="flex_attention backward" if kw["softcap"]
+        else "sdpa backward")
 
 
 def kernel_numbers(inputs, launches, rms_calls, card):
@@ -1793,11 +1932,17 @@ def kernel_numbers(inputs, launches, rms_calls, card):
             "rms_bwd": _rms_bwd_row, "flash_bwd": _flash_bwd_row}
     out = []
     for key, inp in inputs.items():
+        t_row = time.perf_counter()
         kind, arch, *call = key.split(":")
+        inp = _to(inp, "cuda")
         extra = {}
         if kind == "rms_fwd":
-            inp = (*inp, call[0] in TRAINING_CALLS)
+            inp = (*inp, call[0].startswith(TRAINING_CALLS))
         r = make[kind](*inp)
+        if arch in WIDE_KEYS.values() and kind in ("flash", "flash_bwd"):
+            # the plain attention at a wide training cell's shape: 7 to
+            # 145 ms a call, its (B, H, S, T) scores materialised
+            r.setdefault("plain_iters", WIDE_PLAIN_ITERS)
         # a call's own count where the slice counts by call (the VLM's
         # self- and cross-attention flash), else the slice's
         n = launches[arch].get(":".join([r["name"], *call]),
@@ -1815,9 +1960,13 @@ def kernel_numbers(inputs, launches, rms_calls, card):
         library_ms = (None if r["library"] is None
                       else time_ms(r["library"], flush))
         if "library_call" in r:  # the library's attention, (B, H, S, hd)
-            extra["library_max_abs_err"] = float(
-                (r["library"]().transpose(1, 2).float()
-                 - r["plain"]().float()).abs().max())
+            lib, plain = r["library"](), r["plain"]()
+            if isinstance(plain, torch.Tensor):  # a forward: one output
+                lib, plain = (lib,), (plain,)
+            extra["library_max_abs_err"] = max(
+                float((a.transpose(1, 2).float() - b.float()).abs().max())
+                for a, b in zip(lib, plain))
+            del lib, plain
         t_ops, t_bytes = r["flops"] / PEAK_FLOPS, r["nbytes"] / PEAK_BYTES
         out.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
@@ -1830,6 +1979,8 @@ def kernel_numbers(inputs, launches, rms_calls, card):
             "card": card, **extra,
             **{k: r[k] for k in ("n_split", "note", "plan", "with_rstd",
                                  "plain_iters", "library_call") if k in r}})
+        print(f"phase 4 row {key}: {time.perf_counter() - t_row:.1f} s",
+              flush=True)
     return out
 
 
@@ -1953,6 +2104,63 @@ def ssd_times(root):
                 *args, dy, dhf, h0=h0))
             row("mamba_chunk_scan_bwd", call, shape, bwd,
                 by_kernel=by_kernel(bwd))
+
+
+# rows of --flash-bwd-times: the bf16 flash backward at the training
+# cells' shapes, (b, s, h, kv, hd, causal, window, cap, scale) with T = S:
+# head dim 64 (llama3.2-1b, musicgen-medium), 80 (zamba2-2.7b), 128
+# (deepseek-coder-33b, grok-1-314b, the VLM's self- and cross-attention,
+# gemma2-27b's local and global layers) and 256 (gemma-7b)
+FLASH_BWD_TIMED = [
+    (4, 2048, 32, 8, 64, True, None, None, 64 ** -0.5),
+    (4, 2048, 24, 24, 64, True, None, None, 64 ** -0.5),
+    (4, 2048, 32, 32, 80, True, None, None, 80 ** -0.5),
+    (4, 2048, 56, 8, 128, True, None, None, 128 ** -0.5),
+    (4, 2048, 48, 8, 128, True, None, 30.0, 128 ** -0.5),
+    (4, 2048, 64, 8, 128, True, None, None, 128 ** -0.5),
+    (4, 2048, 64, 8, 128, False, None, None, 128 ** -0.5),
+    (1, 8192, 32, 16, 128, True, 4096, 50.0, 1 / 12),
+    (1, 8192, 32, 16, 128, True, None, 50.0, 1 / 12),
+    (4, 2048, 16, 16, 256, True, None, None, 256 ** -0.5)]
+
+
+def flash_bwd_times(root):
+    """The bf16 flash backward of the checkout at ``root`` (already on
+    ``sys.path``), timed (cold L2, ``time_ms``) at ``FLASH_BWD_TIMED``,
+    from the plain forward's output and log-sum-exp; a head dim the
+    checkout's backward is not built for (``build.BWD_HEAD_DIMS`` where a
+    checkout has it) is skipped.  Prints one JSON line a timing, each with
+    the card."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
+    if not Path(fa.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {fa.__file__}, not {root}'s")
+    build.load(fa.BWD_NAME)
+    card = _card()
+    print(card)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(0)
+    built = getattr(build, "BWD_HEAD_DIMS", build.HEAD_DIMS)
+    with torch.no_grad():
+        for b, s, h, kv, hd, causal, window, cap, scale in FLASH_BWD_TIMED:
+            if hd not in built:
+                continue
+            q, do = (_randn(rng, (b, s, h, hd), torch.bfloat16)
+                     for _ in range(2))
+            k, v = (_randn(rng, (b, s, kv, hd), torch.bfloat16)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=cap,
+                      scale=scale)
+            o, lse = (x.contiguous()
+                      for x in ref.flash_attention_fwd(q, k, v, **kw))
+            ms = time_ms(lambda: fa.flash_attention_bwd(  # noqa: B023
+                q, k, v, o, lse, do, **kw), flush)
+            print(json.dumps({
+                "kernel": "flash_attention_bwd",
+                "shape": [b, s, h, kv, hd], "causal": causal,
+                "window": window, "softcap": cap, "dtype": "bfloat16",
+                "ms": ms, "root": str(root), "card": card}), flush=True)
+            del q, k, v, o, lse, do
 
 
 def serving_runtime(root):
@@ -2499,16 +2707,16 @@ def run_vision_slice(arch, widths, layers, card):
                                NEW_TOKENS)}
     want_shapes = {shape: per * n for shape, per, n in calls.values()}
     # the flash launches by call, told apart by the wrapper's count by
-    # (b, s, t, h, kv, hd): the prompt against itself, the prompt and a
-    # decode step's token against the image tokens
+    # (b, s, t, h, kv, hd, causal, window): the prompt against itself, the
+    # prompt and a decode step's token against the image tokens
     heads = (cfg.num_heads, cfg.num_kv_heads, hd)
     flash_calls = {
-        "self prefill": ((MAX_BATCH, VISION_PROMPT, VISION_PROMPT, *heads),
-                         n_self),
+        "self prefill": ((MAX_BATCH, VISION_PROMPT, VISION_PROMPT, *heads,
+                          True, 0), n_self),
         "cross prefill": ((MAX_BATCH, VISION_PROMPT, cfg.num_image_tokens,
-                           *heads), n_cross),
-        "cross decode step": ((MAX_BATCH, 1, cfg.num_image_tokens, *heads),
-                              n_cross * NEW_TOKENS)}
+                           *heads, False, 0), n_cross),
+        "cross decode step": ((MAX_BATCH, 1, cfg.num_image_tokens, *heads,
+                               False, 0), n_cross * NEW_TOKENS)}
     want_flash = {shape: n for shape, n in flash_calls.values()}
     if (launches != want or rms_shapes != want_shapes
             or flash_shapes != want_flash):
@@ -2760,42 +2968,70 @@ def parity_sweep(card):
 
 
 def grad_parity(cfg, params, check=True):
-    """forward_loss and its gradients on one (2, 512) batch through the
-    kernels, against the same with ops.flash_attention, ops.rmsnorm and
+    """forward_loss and its gradients on one (2, 512) batch (a VLM's with
+    (2, 2048, 7680) image embeddings from the seed) through the kernels,
+    against the same with ops.flash_attention, ops.rmsnorm and
     ops.mamba_chunk_scan patched to their plain versions (differentiated
     by autograd: the SSD through its sequential recurrence); with
-    ``check``, within PARITY_LOSS_REL and PARITY_GRAD_REL_L2."""
+    ``check``, within PARITY_LOSS_REL and PARITY_GRAD_REL_L2.  An MoE's
+    kernel path makes the plain path's router choices (``_routes``): in
+    bf16 a choice that flips with one op's rounding moves its expert's
+    gradients by far more than the rounding; the figures with the kernel
+    path's own choices are reported beside, not checked."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_paths
     rng = np.random.default_rng(4)
     toks = torch.from_numpy(_token_array(rng, cfg, PARITY_BATCH,
                                          PARITY_SEQ + 1)).cuda()
+    img = (torch.from_numpy(rng.standard_normal(
+        (PARITY_BATCH, cfg.num_image_tokens, cfg.vision_dim)).astype(
+            np.float32)).cuda() if cfg.vision_dim else None)
     names, leaves = zip(*tree_paths(params))
 
     def run():
         loss, _ = model_lib.forward_loss(params, cfg, toks[:, :-1],
-                                         toks[:, 1:])
+                                         toks[:, 1:], img)
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
-    loss_k, grads_k = run()
+    def compare(loss_k, grads_k, what):
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        # a leaf whose plain gradient is 0 (none at these inputs) counts
+        # its kernel gradient's norm
+        rels = {n: float((a.float() - b.float()).norm()
+                         / b.float().norm().clamp(min=1e-30))
+                for n, a, b in zip(names, grads_k, grads_p)}
+        worst = max(rels, key=rels.get)
+        print(f"{cfg.name} gradient parity ({cfg.dtype}{what}) at (B, S) = "
+              f"({PARITY_BATCH}, {PARITY_SEQ}): loss {loss_k} vs plain "
+              f"{loss_p} (rel {loss_rel:.3e}, tol {PARITY_LOSS_REL}); largest "
+              f"gradient rel L2 {rels[worst]:.3e} at {worst} (tol "
+              f"{PARITY_GRAD_REL_L2})")
+        return {"loss_kernel": loss_k, "loss_plain": loss_p,
+                "loss_rel": loss_rel, "worst_leaf": worst,
+                "worst_grad_rel_l2": rels[worst], "grad_rel_l2": rels}
+
+    plain_routes = []
     with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
             mock.patch.object(ops, "rmsnorm", ref.rmsnorm), \
-            mock.patch.object(ops, "mamba_chunk_scan", ref.mamba_chunk_scan):
+            mock.patch.object(ops, "mamba_chunk_scan", ref.mamba_chunk_scan), \
+            _routes(plain_routes):
         loss_p, grads_p = run()
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    rels = {n: float((a.float() - b.float()).norm() / b.float().norm())
-            for n, a, b in zip(names, grads_k, grads_p)}
-    worst = max(rels, key=rels.get)
-    res = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": loss_rel,
-           "worst_leaf": worst, "worst_grad_rel_l2": rels[worst],
-           "grad_rel_l2": rels}
-    print(f"{cfg.name} gradient parity ({cfg.dtype}) at (B, S) = "
-          f"({PARITY_BATCH}, {PARITY_SEQ}): loss {loss_k} vs plain {loss_p} (rel "
-          f"{loss_rel:.3e}, tol {PARITY_LOSS_REL}); largest gradient rel L2 "
-          f"{rels[worst]:.3e} at {worst} (tol {PARITY_GRAD_REL_L2})")
-    if check and not (loss_rel <= PARITY_LOSS_REL
-                      and rels[worst] <= PARITY_GRAD_REL_L2):
+    if cfg.moe:
+        with _routes([], plain_routes):
+            res = compare(*run(), ", routes pinned to the plain path's")
+        kernel_routes = []
+        with _routes(kernel_routes):
+            loss_k, grads_k = run()
+        res["unpinned_not_checked"] = compare(loss_k, grads_k,
+                                              ", the kernel path's routes")
+        res["unpinned_not_checked"]["choices_differ"] = _choices_differ(
+            kernel_routes, plain_routes)
+        del grads_k
+    else:
+        res = compare(*run(), "")
+    if check and not (res["loss_rel"] <= PARITY_LOSS_REL
+                      and res["worst_grad_rel_l2"] <= PARITY_GRAD_REL_L2):
         raise AssertionError(f"gradient parity failed: {res}")
     return res
 
@@ -2858,29 +3094,71 @@ def restart_check(cfg):
     return worst
 
 
-def _train_launches(cfg):
-    """Kernel launches of one training step of ``cfg`` (forward and
-    backward), and the rmsnorm launches by width as ((d, forward),
-    ...), ((d, backward), ...).  Under remat "full" or "dots" each
-    checkpointed repeat's forward runs twice (the forward, then the
-    recomputation in the backward: the kernels launch outside PyTorch's
-    dispatcher, so "dots" recomputes them too); the final norm lies
-    outside the repeats and runs once."""
+def _train_launches(cfg, batch, seq):
+    """Kernel launches of one training step of ``cfg`` at (batch, seq)
+    (forward and backward), and the rmsnorm launches by call as {kernel:
+    {(call, rows, d): launches}}: the "training step" norms at batch x
+    seq rows by width, and the VLM's cross-attention q_norm (a row a
+    query token's head) and k_norm (a row an image token's kv head) over
+    head_dim.  Under remat "full" or "dots" each checkpointed repeat's
+    forward runs twice (the forward, then the recomputation in the
+    backward: the kernels launch outside PyTorch's dispatcher, so "dots"
+    recomputes them too); the final norm lies outside the repeats and runs
+    once.  A cross-attention layer launches the flash kernels as a
+    self-attention layer does (non-causal, against the image tokens)."""
     k = 2 if cfg.remat in ("full", "dots") else 1
-    n_attn, n_ssd = _n_layers(cfg, "attn"), _n_layers(cfg, "mamba2")
-    widths = _norm_widths(cfg)
-    fwd = {d: k * n - (k - 1) * (d == cfg.d_model) for d, n in widths.items()}
+    n_cross = _n_layers(cfg, "cross_attn")
+    n_attn = _n_layers(cfg, "attn") + n_cross
+    n_ssd = _n_layers(cfg, "mamba2")
+    rows = batch * seq
+    bwd = {("training step", rows, d): n
+           for d, n in _norm_widths(cfg).items()}
+    if n_cross:
+        hd = cfg.head_dim
+        bwd[("training step q_norm", rows * cfg.num_heads, hd)] = n_cross
+        bwd[("training step k_norm",
+             batch * cfg.num_image_tokens * cfg.num_kv_heads, hd)] = n_cross
+    fwd = {c: k * n - (k - 1) * (c == ("training step", rows, cfg.d_model))
+           for c, n in bwd.items()}
     per_step = {"flash_attention": k * n_attn, "flash_attention_bwd": n_attn,
                 "decode_attention": 0, "mamba_chunk_scan": k * n_ssd,
                 "mamba_chunk_scan_bwd": n_ssd,
                 "rmsnorm_fwd": sum(fwd.values()),
-                "rmsnorm_bwd": sum(widths.values())}
-    return per_step, {"rmsnorm_fwd": fwd, "rmsnorm_bwd": widths}
+                "rmsnorm_bwd": sum(bwd.values())}
+    return per_step, {"rmsnorm_fwd": fwd, "rmsnorm_bwd": bwd}
+
+
+def _flash_calls(cfg, batch, seq):
+    """A training step's flash calls of ``cfg`` at (batch, seq), under
+    the wrappers' count key (b, s, t, h, kv, hd, causal, window): {call:
+    (key, attention layers)}.  The call names the mask where a step has
+    two kinds (gemma2's "local" and "global" layers, the VLM's "self"- and
+    "cross"-attention against its image tokens), else it is ""."""
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    layers = {}
+    for g in cfg.groups:
+        for spec in g.pattern:
+            if spec.kind == "attn":
+                key = (batch, seq, seq, *heads, True, spec.window or 0)
+            elif spec.kind == "cross_attn":
+                key = (batch, seq, cfg.num_image_tokens, *heads, False, 0)
+            else:
+                continue
+            layers[key] = layers.get(key, 0) + g.repeat
+    windowed = any(key[-1] for key in layers)
+    return {(("local" if key[-1] else "global") if windowed
+             else ("self" if key[-2] else "cross")) if len(layers) > 1
+            else "": (key, n) for key, n in layers.items()}
+
+
+def _train_shape(arch):
+    """(batch, seq) of a training step of ``arch``."""
+    return TRAIN_SHAPE.get(arch, (TRAIN_BATCH, TRAIN_SEQ))
 
 
 def _trainer(cfg, optimizer, steps=TRAIN_STEPS):
     """A ``Trainer`` of ``cfg`` (params from seed 0) with ``optimizer``,
-    TRAIN_BATCH x TRAIN_SEQ tokens a step, on one fixed batch."""
+    ``_train_shape`` tokens a step, on one fixed batch."""
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -2888,11 +3166,12 @@ def _trainer(cfg, optimizer, steps=TRAIN_STEPS):
         def batch_at(self, step):
             return super().batch_at(0)
 
-    tr = Trainer(cfg, TrainerConfig(steps=steps, global_batch=TRAIN_BATCH,
-                                    seq_len=TRAIN_SEQ, log_every=1,
+    batch, seq = _train_shape(cfg.name)
+    tr = Trainer(cfg, TrainerConfig(steps=steps, global_batch=batch,
+                                    seq_len=seq, log_every=1,
                                     eval_every=10**9),
                  optimizer=optimizer, device="cuda")
-    tr.dataset = FixedBatch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tr.dataset = FixedBatch(cfg, batch, seq)
     return tr
 
 
@@ -2901,8 +3180,12 @@ def _train_steps(tr, what):
     and read just after, and the peak of allocated device memory from just
     before (the params and optimizer state included); check every kernel's
     launches, and rmsnorm's by (rows, d), against ``_train_launches``.
-    Returns (losses, median step ms of steps 2.., per-step launches,
-    launches, rmsnorm launches by width, peak bytes)."""
+    The flash forward's and backward's launches by mask
+    (``_flash_calls``) are checked too, and where a step has two masks
+    each call's count is returned as "flash_attention:<call>" and
+    "flash_attention_bwd:<call>".  Returns (losses, median step ms of
+    steps 2.., per-step launches, launches, rmsnorm launches by width,
+    peak bytes)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
@@ -2911,42 +3194,71 @@ def _train_steps(tr, what):
     launches = {n: fn.launches for n, fn in _counters().items()}
     rms_shapes = {n: dict(_counters()[n].shapes)
                   for n in ("rmsnorm_fwd", "rmsnorm_bwd")}
-    per_step, widths = _train_launches(tr.cfg)
+    flash_shapes = {n: dict(_counters()[n].shapes)
+                    for n in ("flash_attention", "flash_attention_bwd")}
+    per_step, widths = _train_launches(tr.cfg, tr.tc.global_batch,
+                                       tr.tc.seq_len)
+    calls = _flash_calls(tr.cfg, tr.tc.global_batch, tr.tc.seq_len)
     n = len(hist)
     want = {k: c * n for k, c in per_step.items()}
-    rows = TRAIN_BATCH * TRAIN_SEQ
-    want_shapes = {k: {(rows, d): c * n for d, c in w.items()}
+    want_shapes = {k: {(rows, d): c * n for (_, rows, d), c in w.items()}
                    for k, w in widths.items()}
-    if launches != want or rms_shapes != want_shapes:
+    # each attention layer launches the backward once a step and the
+    # forward as often as the step's ratio (twice under remat)
+    fwd_per_layer = per_step["flash_attention"] // max(
+        per_step["flash_attention_bwd"], 1)
+    want_flash = {k: {key: c * layers * n for key, layers in calls.values()}
+                  for k, c in (("flash_attention", fwd_per_layer),
+                               ("flash_attention_bwd", 1))}
+    if (launches != want or rms_shapes != want_shapes
+            or flash_shapes != want_flash):
         raise AssertionError(f"{what}: launches {launches} by shape "
-                             f"{rms_shapes}, expected {want} by shape "
-                             f"{want_shapes} ({per_step} a step)")
+                             f"{rms_shapes}, flash's {flash_shapes}, "
+                             f"expected {want} by shape {want_shapes}, "
+                             f"flash's {want_flash} ({per_step} a step)")
     losses = [r["loss"] for r in hist]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: losses {losses}")
     step_ms = 1e3 * float(np.median([r["time_s"] for r in hist[1:]]))
-    by_width = {f"{k}:training step:{d}": (c, rms_shapes[k][(rows, d)])
-                for k, w in widths.items() for d, c in w.items()}
-    print(f"{what}: launches a step {json.dumps(per_step)}; losses "
+    by_width = {f"{k}:{call}:{d}": (c, rms_shapes[k][(rows, d)])
+                for k, w in widths.items() for (call, rows, d), c in w.items()}
+    by_call = {f"{k}:{call}": shapes[key]
+               for k, shapes in flash_shapes.items()
+               for call, (key, _) in calls.items() if call}
+    launches.update(by_call)
+    print(f"{what}: launches a step {json.dumps(per_step)}"
+          + (f"; flash launches by call {json.dumps(by_call)} in {n} steps"
+             if by_call else "") + "; losses "
           f"{losses}; step {step_ms:.2f} ms (median of steps 2-{n}); peak "
           f"memory {peak} B")
     return losses, step_ms, per_step, launches, by_width, peak
 
 
-MFU_FORMULA = ("(6 N B S + 12 hd H L_attn B S (S + 1) / 2) / step time / "
-               "989e12; N = param_count(); an mLSTM's intra-chunk "
-               "products are not counted")
+MFU_FORMULA = ("(6 N B S + 12 hd H B P) / step time / 989e12; N = "
+               "param_count(), or active_param_count() for an MoE (top-k of "
+               "E experts); P = the live (query, key) pairs of every "
+               "attention layer: S (S + 1) / 2 causal, less what a window "
+               "masks, S T for cross-attention against T image tokens; an "
+               "mLSTM's intra-chunk products are not counted")
 
 
-def _mfu(cfg, n_params, step_ms):
-    """(model FLOPs a step, MFU) by ``MFU_FORMULA``: 6 N tokens plus the
-    attention products, 4 hd FLOPs a live (causal) pair forward and 8
+def _mfu(cfg, step_ms):
+    """(model FLOPs a step, N, MFU) by ``MFU_FORMULA``: 6 N tokens plus
+    the attention products, 4 hd FLOPs a live pair forward and 8
     backward."""
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn = 12 * cfg.head_dim * pairs * TRAIN_BATCH * cfg.num_heads \
-        * _n_layers(cfg, "attn")
-    flops = 6 * n_params * TRAIN_BATCH * TRAIN_SEQ + attn
-    return flops, flops / (step_ms / 1e3) / PEAK_FLOPS
+    b, s = _train_shape(cfg.name)
+    n_params = cfg.active_param_count() if cfg.moe else cfg.param_count()
+    pairs = 0
+    for g in cfg.groups:
+        for spec in g.pattern:
+            if spec.kind == "cross_attn":
+                pairs += g.repeat * s * cfg.num_image_tokens
+            elif spec.kind == "attn":
+                w = min(spec.window or s, s)
+                pairs += g.repeat * (w * (w + 1) // 2 + (s - w) * w)
+    attn = 12 * cfg.head_dim * cfg.num_heads * b * pairs
+    flops = 6 * n_params * b * s + attn
+    return flops, n_params, flops / (step_ms / 1e3) / PEAK_FLOPS
 
 
 def slstm_scan_ms(tr):
@@ -2983,21 +3295,29 @@ def slstm_scan_ms(tr):
 
 def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
     """Phase 3, a training slice: ``arch`` at its published width through
-    ``Trainer`` (AdamW, the config's own remat: "full" for llama and
-    zamba2, "dots" for xlstm and musicgen; 8 steps of 4 x 2048 tokens on a
-    fixed batch, deterministic algorithms), after a gradient-parity check
-    at (2, 512) from the same params in ``PARITY_DTYPE[arch]`` (for xlstm
-    also the parity in bf16, reported and not checked); llama also the
-    restart check, xlstm the sLSTM scan's share of a step
-    (``slstm_scan_ms``).  Returns its launch
+    ``Trainer`` (the config's own remat: "full" for llama, zamba2 and the
+    ``WIDE_TRAIN`` families, "dots" for xlstm and musicgen; 8 steps of
+    ``_train_shape`` tokens on a fixed batch, deterministic algorithms;
+    AdamW, or a ``WIDE_TRAIN`` family's optimizer at its depth cut), after
+    a gradient-parity check at (2, 512) from the same params in
+    ``PARITY_DTYPE[arch]`` (for xlstm also the parity in bf16, reported
+    and not checked); llama also the restart check, xlstm the sLSTM scan's
+    share of a step (``slstm_scan_ms``).  Returns its launch
     counts, its rmsnorm launches as ``run_slice`` does (the call: a
     training step), and its stats."""
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.optimizer import make_optimizer
-    cfg = published_config(arch, _widths(arch))
+    layers, opt_name = WIDE_TRAIN.get(arch, (None, "adamw"))
+    cfg = published_config(arch, _widths(arch), layers)
+    batch, seq = _train_shape(arch)
     parity_cfg = dataclasses.replace(cfg, dtype=PARITY_DTYPE[arch])
-    parity = grad_parity(parity_cfg, _params(cfg, parity_cfg))
+    params = _params(cfg, parity_cfg)
+    if cfg.vision_dim:  # gates at 0 would zero the cross-attention's
+        with torch.no_grad():  # gradients but the gate's
+            _open_gates(params, torch.Generator(device="cuda").manual_seed(1))
+    parity = grad_parity(parity_cfg, params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     if arch == XLSTM_ARCH:  # zamba2's bf16 gradients: --parity-sweep
@@ -3005,11 +3325,15 @@ def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
             cfg, _params(cfg), check=False)
         gc.collect()
         torch.cuda.empty_cache()
-    tr = _trainer(cfg, make_optimizer("adamw", **TRAIN_OPT))
+    tr = _trainer(cfg, make_optimizer(opt_name, **(
+        dict(TRAIN_OPT, lr=WIDE_LR) if arch in WIDE_TRAIN else TRAIN_OPT)))
     n_params = sum(p.numel() for p in tree_leaves(tr.params))
     if n_params != cfg.param_count():
         raise AssertionError(f"{cfg.name}: {n_params} params on the card, "
                              f"param_count() {cfg.param_count()}")
+    print(f"{cfg.name}: {n_params} params on the card, param_count() at "
+          f"{cfg.num_layers} layers; {opt_name}, {batch} x {seq} tokens a "
+          f"step")
     torch.use_deterministic_algorithms(True)
     losses, step_ms, per_step, launches, rms_calls, peak = _train_steps(
         tr, f"{cfg.name} training")
@@ -3020,7 +3344,7 @@ def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
     # so what the fixed batch taught cannot carry over; a model whose
     # forward saw the next token would predict it there too
     held_out = float(tr._eval_step(tr.params, tr._batch(SyntheticDataset(
-        cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(1)))["loss"])
+        cfg, batch, seq).batch_at(1)))["loss"])
     print(f"{cfg.name} loss on an unseen batch after the 8 steps: "
           f"{held_out} (the fixed batch's: {losses[-1]})")
     held_margin = (HELD_OUT_SHARE_OF[arch] * (losses[0] - losses[-1])
@@ -3029,13 +3353,16 @@ def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
         raise AssertionError(f"{cfg.name}: loss on an unseen batch "
                              f"{held_out}, on the training batch "
                              f"{losses[-1]} (margin {held_margin})")
-    flops, mfu = _mfu(cfg, n_params, step_ms)
-    stats = {"arch": cfg.name, "n_params": n_params, "batch": TRAIN_BATCH,
-             "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+    flops, n_mfu, mfu = _mfu(cfg, step_ms)
+    stats = {"arch": cfg.name, "n_params": n_params, "batch": batch,
+             "seq_len": seq, "steps": TRAIN_STEPS, "losses": losses,
+             "layers": cfg.num_layers, "optimizer": opt_name,
+             "lr": WIDE_LR if arch in WIDE_TRAIN else TRAIN_OPT["lr"],
              "step_ms_median_2_to_8": step_ms,
              "step_ms": [1e3 * r["time_s"] for r in tr.history],
-             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+             "tokens_per_s": batch * seq / (step_ms / 1e3),
              "model_flops_per_step": flops, "mfu": mfu,
+             "mfu_n_params": n_mfu,
              "mfu_formula": MFU_FORMULA, "remat": cfg.remat,
              "grad_norms": [r["grad_norm"] for r in tr.history],
              "loss_margin": margin, "held_out_margin": held_margin,
@@ -3149,7 +3476,7 @@ def run_optimized(card, unfused):
              "n_params": n_params, "serving_vs_unfused": serving,
              "losses": losses, "step_ms_median_2_to_8": step_ms,
              "unfused_step_ms_median_2_to_8": unfused["step_ms_median_2_to_8"],
-             "mfu": _mfu(cfg, n_params, step_ms)[1],
+             "mfu": _mfu(cfg, step_ms)[2],
              "peak_memory_bytes": peak,
              "unfused_peak_memory_bytes": unfused["peak_memory_bytes"],
              "launches": launches, "card": card}
@@ -3377,10 +3704,10 @@ def run_coordinator(card, arch=TRAIN_ARCH):
                              f"1..{len(live)} {live}, expected one value")
     print(f"{cfg.name} coordinator: live tensor bytes after each of "
           f"{len(live)} steps {live[0]}")
-    per_micro, widths = _train_launches(cfg)
+    per_micro, widths = _train_launches(cfg, 1, TRAIN_SEQ)
     runs = COORD_MICRO * COORD_STEPS
     want = {n: c * runs for n, c in per_micro.items()}
-    want_shapes = {n: {(TRAIN_SEQ, d): c * runs for d, c in w.items()}
+    want_shapes = {n: {(rows, d): c * runs for (_, rows, d), c in w.items()}
                    for n, w in widths.items()}
     if launches != want or rms_shapes != want_shapes:
         raise AssertionError(f"coordinator launches {launches} by shape "
@@ -3468,8 +3795,8 @@ def run_coordinator(card, arch=TRAIN_ARCH):
           f"ms step, idle share {profile['device_idle_share']:.4f}, "
           f"{profile['kernel_launches']} launches")
     print(json.dumps({"coordinator": stats}))
-    rms_calls = {f"{n}:microbatch:{d}": (c, rms_shapes[n][(TRAIN_SEQ, d)])
-                 for n, w in widths.items() for d, c in w.items()}
+    rms_calls = {f"{n}:microbatch:{d}": (c, rms_shapes[n][(rows, d)])
+                 for n, w in widths.items() for (_, rows, d), c in w.items()}
     return launches, rms_calls
 
 
@@ -3513,6 +3840,9 @@ def main(argv=()) -> int:
     ap.add_argument("--ssd-times", action="store_true",
                     help="only time the SSD forward and backward kernels "
                          "(ssd_times)")
+    ap.add_argument("--flash-bwd-times", action="store_true",
+                    help="only time the bf16 flash backward at the "
+                         "training shapes (flash_bwd_times)")
     ap.add_argument("--parity-sweep", action="store_true",
                     help="only measure zamba2's bf16 gradients against "
                          "each plain version and fp32 (parity_sweep)")
@@ -3524,14 +3854,15 @@ def main(argv=()) -> int:
                          "and print each depth's loss fall (xlstm_depth)")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch --rmsnorm-times, "
-                         "--ssd-times or --serving-runtime runs (default: "
-                         "this one)")
+                         "--ssd-times, --flash-bwd-times or "
+                         "--serving-runtime runs (default: this one)")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     if root != ROOT and not (args.rmsnorm_times or args.ssd_times
+                             or args.flash_bwd_times
                              or args.serving_runtime):
-        ap.error("--root is for --rmsnorm-times, --ssd-times and "
-                 "--serving-runtime")
+        ap.error("--root is for --rmsnorm-times, --ssd-times, "
+                 "--flash-bwd-times and --serving-runtime")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3545,6 +3876,9 @@ def main(argv=()) -> int:
         return 0
     if args.ssd_times:
         ssd_times(root)
+        return 0
+    if args.flash_bwd_times:
+        flash_bwd_times(root)
         return 0
     if args.serving_runtime:
         serving_runtime(root)
@@ -3586,7 +3920,11 @@ def main(argv=()) -> int:
              for t in ("Li64E", "Li80E")] + [
         ("flash_fwd_kernel_sm90", "Li128E"), ("flash_fwd_kernel_sm90",
                                               "Li256E"),
-        ("flash_fwd_kernel", "IfLi256E"), ("decode_kernel", "Li128ELi7E"),
+        ("flash_fwd_kernel", "IfLi256E"),
+        ("flash_bwd_dq_kernel_sm90", "Li256E"),
+        ("flash_bwd_dkdv_split_kernel_sm90", "Li256E"),
+        ("flash_bwd_dq_kernel", "IfLi256E"),
+        ("flash_bwd_dkdv_kernel", "IfLi256E"), ("decode_kernel", "Li128ELi7E"),
         ("decode_kernel", "Li128ELi6E"), ("decode_kernel", "IfLi128ELi6E"),
         ("decode_kernel", "IfLi128ELi7E"), ("decode_kernel", "IfLi256ELi8E")
     ] + [("decode_kernel", f"Li256ELi{g}E") for g in (1, 2, 4, 7, 8)] + [
@@ -3629,7 +3967,11 @@ def main(argv=()) -> int:
         print(f"phase {what}: {seconds[what]:.1f} s", flush=True)
 
     # 2. kernels against their plain versions
-    inputs = check_kernels()
+    # phase 4's inputs wait on the host: the slices of phase 3 need the
+    # card's memory (deepseek-v3's 50.9 GB of weights did not fit beside
+    # them once the wide training shapes joined)
+    inputs = _to(check_kernels(), "cpu")
+    torch.cuda.empty_cache()
     done("2 kernels")
 
     # 3. the slices: serving, then training
@@ -3665,6 +4007,9 @@ def main(argv=()) -> int:
     run_remat(card)
     run_optimizers(card, llama)
     done("3 optimized, remat, optimizers")
+    for arch, key in WIDE_KEYS.items():
+        launches[key], rms_calls[key], _ = run_training(card, arch, key)
+        done(f"3 {key}")
 
     # 4. numbers
     rows = kernel_numbers(inputs, launches, rms_calls, card)

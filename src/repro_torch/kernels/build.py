@@ -193,9 +193,8 @@ def entry(name: str, symbol: str | None = None):
 
 
 # head dims the attention kernels are instantiated for (csrc/*.cu
-# templates): the flash forward and decode, and the flash backward
+# templates): the flash forward and backward, and decode
 HEAD_DIMS = (32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None, *,

@@ -18,7 +18,8 @@
 // 2048, 32/8, 64), causal: 5 products of 2 hd FLOPs a live pair, 172
 // GFLOP against 168 MB of q, k, v, o, dO, lse and the gradients.  This design
 // computes S and dP in both passes, 7 products a pair, so it can reach at
-// most 5/7 of that bound.
+// most 5/7 of that bound; at head dim 256 (gemma-7b) 8 products, 5/8
+// (flash_bwd_dkdv_split_kernel_sm90 below).
 //
 // Two passes, no atomics, so the result is the same in every run: every
 // CTA owns its output rows and sums them in a fixed order.
@@ -41,22 +42,24 @@
 //    K-major), p and dS on the fp32 fragments in registers, then dQ += dS
 //    K by wgmma m64n{hd}k16 with dS rounded to bf16 as the register A
 //    operand and K read MN-major.
-//  * flash_bwd_dkdv_kernel_sm90, two warpgroups a CTA, 64 kv rows each,
-//    sharing each Q/dO tile: S^T = K Q^T and dP^T = V dO^T (K, V
+//  * flash_bwd_dkdv_kernel_sm90 (head dim <= 128), two warpgroups a
+//    CTA, 64 kv rows each, sharing each Q/dO tile: S^T = K Q^T and dP^T = V dO^T (K, V
 //    resident; Q, dO read K-major), then dV += P^T dO and dK += dS^T Q
 //    with P^T and dS^T as bf16 register A operands and dO, Q read
 //    MN-major.  The next tile's lse and D load while this tile's first
 //    products run; each warpgroup skips the query tiles fully masked for
-//    its keys.
+//    its keys.  At head dim 256, flash_bwd_dkdv_split_kernel_sm90: one
+//    warpgroup a CTA sweeps its query tiles twice, dV then dK.
 //  * K/V tiles (dQ pass) and Q/dO tiles (dK/dV pass) arrive by cp.async
 //    into a ring of two stages, as in the forward (and for its reasons:
 //    the no-swizzle layout at any head dim, zero fill past the edge, no
 //    tensor map).
 //  * P and dS are rounded to bf16 as operands, as FA2, FA3 and SDPA do.
 //  * Per CTA (-Xptxas -v on the card, no spills): dQ 6 tiles of 64 x hd
-//    bf16, 48 KB at hd 64 and 60 KB at hd 80, 146 and 151 registers a
-//    thread; dK/dV 8 tiles and 1 KB of lse and D, 65 KB and 81 KB, 198
-//    and 210 registers.
+//    bf16, 48 KB at hd 64, 60 KB at hd 80 and 192 KB at hd 256, 146, 151
+//    and 236 registers a thread; dK/dV 8 tiles and 1 KB of lse and D, 65
+//    KB and 81 KB, 198 and 210 registers, and at hd 256 6 tiles, 193 KB,
+//    238 registers.
 //  * What keeps it from its bound besides the 7/5: as in the forward,
 //    each product waits for the one before, and the elementwise p, dS
 //    work sits between them on the same warpgroup; the dK/dV pass runs
@@ -138,6 +141,15 @@ __device__ __forceinline__ void zero_pad(float* dst, int ss, int n) {
     for (int i = threadIdx.x; i < n * PAD; i += THREADS)
       dst[(i / PAD) * ss + HD + i % PAD] = 0.f;
   }
+}
+
+// Store a lane's N output dims as T, in 16-byte stores at most (head dim
+// 256 gives a lane 8 fp32 dims, two stores).
+template <typename T, int N>
+__device__ __forceinline__ void store_lane(T* dst, const float* in) {
+  constexpr int SV = N * sizeof(T) <= 16 ? N : 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < N; i += SV) store_vec<T, SV>(dst + i, in + i);
 }
 
 // q.k over 4 dims, in the forward's order
@@ -300,11 +312,36 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= S) continue;
     T* dst = dq + qoff + row * qrs + lane * DPL;
     if constexpr (HDP == HD) {
-      store_vec<T, DPL>(dst, acc[r]);
+      store_lane<T, DPL>(dst, acc[r]);
     } else {
 #pragma unroll
       for (int i = 0; i < DPL; ++i)
         if (lane * DPL + i < HD) dst[i] = from_float<T>(acc[r][i]);
+    }
+  }
+}
+
+// acc[r] += sum over the tile's BQ query columns c of w[rbase + r][c]
+// x[c][lane dims]: w is (BK, BQ) P^T or dS^T, x is (BQ, LS) dO or Q
+template <int DPL, int RPWK, int LS>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[RPWK][DPL],
+                                                const float* w,
+                                                const float* x, int rbase,
+                                                int lane) {
+#pragma unroll 2
+  for (int c = 0; c < BQ; c += 4) {
+    float xx[4][DPL];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+      load_floats<DPL>(&x[(c + cc) * LS + lane * DPL], xx[cc]);
+#pragma unroll
+    for (int r = 0; r < RPWK; ++r) {
+      const float4 w4 =
+          *reinterpret_cast<const float4*>(&w[(rbase + r) * BQ + c]);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        acc[r][e] += w4.x * xx[0][e] + w4.y * xx[1][e] + w4.z * xx[2][e] +
+                     w4.w * xx[3][e];
     }
   }
 }
@@ -413,30 +450,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncwarp();
 
-      // dv += P^T dO, dk += dS^T Q: lane owns dims lane*DPL ..
-#pragma unroll 2
-      for (int c = 0; c < BQ; c += 4) {
-        float dd[4][DPL], qq[4][DPL];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          load_floats<DPL>(&sdO[(c + cc) * LS + lane * DPL], dd[cc]);
-          load_floats<DPL>(&sQ[(c + cc) * LS + lane * DPL], qq[cc]);
-        }
-#pragma unroll
-        for (int r = 0; r < RPWK; ++r) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(&sP[(rbase + r) * BQ + c]);
-          const float4 s4 =
-              *reinterpret_cast<const float4*>(&sdS[(rbase + r) * BQ + c]);
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) {
-            avv[r][e] += p4.x * dd[0][e] + p4.y * dd[1][e] + p4.z * dd[2][e] +
-                         p4.w * dd[3][e];
-            akk[r][e] += s4.x * qq[0][e] + s4.y * qq[1][e] + s4.z * qq[2][e] +
-                         s4.w * qq[3][e];
-          }
-        }
-      }
+      // dv += P^T dO, then dk += dS^T Q: lane owns dims lane*DPL ..
+      // lane*DPL + DPL - 1 (at head dim 256, 2 x 64 accumulators a lane
+      // already, so one operand's 4 rows in registers at a time)
+      accumulate_rows<DPL, RPWK, LS>(avv, sP, sdO, rbase, lane);
+      accumulate_rows<DPL, RPWK, LS>(akk, sdS, sQ, rbase, lane);
     }
   }
 
@@ -447,8 +465,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dkd = dk + kvoff + j * kvrs + lane * DPL;
     T* dvd = dv + kvoff + j * kvrs + lane * DPL;
     if constexpr (HDP == HD) {
-      store_vec<T, DPL>(dkd, akk[r]);
-      store_vec<T, DPL>(dvd, avv[r]);
+      store_lane<T, DPL>(dkd, akk[r]);
+      store_lane<T, DPL>(dvd, avv[r]);
     } else {
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
@@ -908,6 +926,290 @@ flash_bwd_dkdv_kernel_sm90(const bf16* __restrict__ q,
   store_rows<HD, WGS>(sQ, avv, dv + kvoff, kvrs, k0, T_len);
 }
 
+// dK/dV at head dim 256.  There dK and dV are 2 x 128 fp32 registers a
+// thread, past the 255 a thread may hold, and two warpgroups' K, V and
+// two stages of Q, dO would be 256 KB of shared memory, past the 227 KB a
+// block may use; so one warpgroup owns a 64-row kv tile (6 tiles, 193 KB)
+// and sweeps its query tiles twice: dV first (S^T, then P^T dO), then dK
+// (S^T and dP^T, then dS^T Q), 128 accumulators each.  Beside dK's 128, a
+// 64-column tile's S^T and dP^T (32 each) do not fit with the addresses
+// and bounds (ptxas spilled 256 bytes), so the dK sweep takes each query
+// tile in two halves of 32 columns: S^T and dP^T by m64n32k16, 16
+// accumulators each, then dK += dS^T Q over the half's 32 query rows (238
+// registers a thread, no spill, 193 KB of shared memory: one CTA an SM).
+// Up to head dim 128 flash_bwd_dkdv_kernel_sm90 above keeps its one
+// sweep.
+//  * Products a live pair: the dQ pass's 3 and 2 + 3 here, 8, against 7
+//    for the one-sweep design and the 5 the gradient needs.  The other
+//    choice, dK and dV cut in halves of head dim over two CTAs, costs 3
+//    a CTA (S^T and dP^T recomputed in full by each, half of dV and dK),
+//    9 in all, and doubles the reads of Q and dO.
+//  * What bounds it at gemma-7b's training shape (4, 2048, 16/16, 256),
+//    causal: the operations, 5 products of 2 x 256 FLOPs over 134e6 live
+//    pairs, 344 GFLOP (0.348 ms at 989 TFLOP/s) against 537 MB of
+//    operands and gradients (0.160 ms at 3.35 TB/s); with 8 products it
+//    can reach 5/8 of that, and less for one warpgroup an SM (the 193 KB
+//    of shared memory admits one CTA), whose products wait on each other
+//    and on the elementwise work between them.
+enum Sweep { SWEEP_DV, SWEEP_DK };
+
+// Descriptor d advanced by n units, by an asm volatile, which stays in
+// order with the wgmma asm around it: ptxas then computes a K step's
+// descriptor at its product, not all 16 of a product ahead of the chain
+// (those early descriptors spilled).
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint64_t n) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;" : "=l"(r) : "l"(d), "l"(n));
+  return r;
+}
+
+// A dK/dV CTA's query tiles: iteration it of a sweep is query head
+// kvh * G + it / n_qt, tile q_begin + (it % n_qt) * 64; and its keys
+// [k0, k0 + n_keys) with the query rows [w_begin, w_end) that can see
+// them.
+struct KvTiles {
+  const bf16* q;
+  const bf16* dO;
+  const float* lse;
+  const float* delta;
+  long long qrs;
+  int S, H, b, kvh, G, q_begin, n_qt, n_it;
+  int k0, n_keys, w_begin, w_end;
+  int causal, window, q_offset;
+  float scale, softcap;
+};
+
+// One sweep of the head-dim-256 dK/dV kernel: Q and dO tiles by cp.async
+// into a ring of two stages (the caller has issued, not committed, the
+// loads of its resident K and V tiles, which join the first stage's
+// group), the next tile's lse and D loaded while this tile's first
+// products run; returns with every copy landed and the stages free.  The
+// copies' offsets and the K steps' descriptors are computed where they
+// are used (load_tile's FRESH, desc_at), not hoisted into registers:
+// hoisted, ptxas spilled 116 bytes.
+template <int HD, int SW>
+__device__ __forceinline__ void dkdv_sweep(const KvTiles& t, bf16* sQ,
+                                           bf16* sdO, float* sL, float* sD,
+                                           uint64_t d_k, uint64_t d_v,
+                                           float (&acc)[HD / 2]) {
+  constexpr int TILE = Smem<HD, 1>::TILE, NS = BN / 2;
+  auto at = [](uint64_t d, int kk) {  // K step kk's descriptor
+    return desc_at(d, kk * sm90::K_MAJOR_STEP);
+  };
+  auto head_off = [&](int it) {
+    return (long long)t.b * t.S * t.qrs +
+           (long long)(t.kvh * t.G + it / t.n_qt) * HD;
+  };
+  auto stats_at = [&](int it) {
+    return ((long long)t.b * t.H + t.kvh * t.G + it / t.n_qt) * t.S;
+  };
+  auto tile_row = [&](int it) { return t.q_begin + (it % t.n_qt) * BN; };
+  // lse (+inf past S) and D of iteration it's 64 query rows into stage st
+  auto load_stats = [&](int it, int st) {
+    if (threadIdx.x < BN) {
+      const int row = tile_row(it) + threadIdx.x;
+      const long long at = stats_at(it) + row;
+      sL[st * BN + threadIdx.x] = row < t.S ? t.lse[at] : INFINITY;
+      sD[st * BN + threadIdx.x] = row < t.S ? t.delta[at] : 0.f;
+    }
+  };
+
+  if (t.n_it > 0) {
+    sm90::load_tile<BN, HD, WG, true>(sQ, t.q + head_off(0), t.qrs,
+                                      tile_row(0), t.S);
+    sm90::load_tile<BN, HD, WG, true>(sdO, t.dO + head_off(0), t.qrs,
+                                      tile_row(0), t.S);
+    load_stats(0, 0);
+  }
+  sm90::cp_async_commit();
+
+  const int r_a = sm90::acc_row(0);
+  int stage = 0;
+  for (int it = 0; it < t.n_it; ++it, stage ^= 1) {
+    const int qt = tile_row(it);
+    const bool more = it + 1 < t.n_it;
+    if (more) {
+      sm90::load_tile<BN, HD, WG, true>(sQ + (stage ^ 1) * TILE,
+                                        t.q + head_off(it + 1), t.qrs,
+                                        tile_row(it + 1), t.S);
+      sm90::load_tile<BN, HD, WG, true>(sdO + (stage ^ 1) * TILE,
+                                        t.dO + head_off(it + 1), t.qrs,
+                                        tile_row(it + 1), t.S);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool active = t.n_keys > 0 && qt + BN > t.w_begin && qt < t.w_end;
+    if (active) {
+      const bf16* cQ = sQ + stage * TILE;
+      const bf16* cdO = sdO + stage * TILE;
+      const uint64_t d_q = sm90::desc_k_major<HD>(cQ);
+      const uint64_t d_do = sm90::desc_k_major<HD>(cdO);
+      // P^T and dS^T in place of the raw S^T (st) and dP^T (dpt) of the
+      // tile's query columns c0 + acc_col(i)
+      auto pair_grads = [&](auto& st, auto& dpt, int c0) {
+        constexpr int N = sizeof(st) / sizeof(st[0]);
+        const float* cL = sL + stage * BN;
+        const float* cD = sD + stage * BN;
+        const bool edge =
+            (t.causal && t.k0 + 63 > t.q_offset + qt) ||
+            (t.window > 0 && t.q_offset + qt + BN - 1 - t.k0 >= t.window);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int c = c0 + sm90::acc_col(i);
+          float p, ds;
+          pair_grad(st[i], dpt[i], cL[c], cD[c], t.scale, t.softcap, &p,
+                    &ds);
+          if (edge) {
+            const int j = t.k0 + r_a + 8 * ((i >> 1) & 1);
+            const int qpos = t.q_offset + qt + c;
+            bool ok = true;
+            if (t.causal) ok = j <= qpos;
+            if (t.window > 0) ok = ok && qpos - j < t.window;
+            if (!ok) p = ds = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = ds;
+        }
+      };
+
+      if constexpr (SW == SWEEP_DV) {
+        // S^T of the tile (dP^T stays 0: P needs no dS), then dV += P^T
+        // dO with P^T in bf16 registers
+        float st[NS], dpt[NS];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) st[i] = dpt[i] = 0.f;
+        sm90::fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          sm90::Wgmma<BN>::ss(st, at(d_k, kk), at(d_q, kk), kk > 0);
+        sm90::commit();
+        if (more) load_stats(it + 1, stage ^ 1);
+        sm90::wait<0>();
+        sm90::fence_regs(st);
+        pair_grads(st, dpt, 0);
+        const uint64_t d_dot = sm90::desc_mn_major<HD>(cdO);
+        uint32_t pa[BN / 16][4];
+        sm90::acc_to_a(st, pa);
+        sm90::fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          sm90::Wgmma<HD>::rs(acc, pa[kk],
+                              d_dot + kk * sm90::MN_MAJOR_STEP<HD>, 1);
+        sm90::commit();
+        sm90::wait<0>();
+        sm90::fence_regs(acc);
+      } else {
+        // the dK sweep, a half of 32 query columns at a time: S^T and dP^T
+        // of the half (its rows of the K-major Q and dO tiles start 32 HD
+        // elements, 4 HD descriptor units, on), then dK += dS^T Q over its
+        // two K steps of Q's rows
+        const uint64_t d_qt = sm90::desc_mn_major<HD>(cQ);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float st[NS / 2], dpt[NS / 2];
+#pragma unroll
+          for (int i = 0; i < NS / 2; ++i) st[i] = dpt[i] = 0.f;
+          const uint64_t half = 4 * HD * h;
+          sm90::fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            sm90::Wgmma<BN / 2>::ss(st, at(d_k, kk), at(d_q + half, kk),
+                                    kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            sm90::Wgmma<BN / 2>::ss(dpt, at(d_v, kk), at(d_do + half, kk),
+                                    kk > 0);
+          sm90::commit();
+          if (h == 0 && more) load_stats(it + 1, stage ^ 1);
+          sm90::wait<0>();
+          sm90::fence_regs(st);
+          sm90::fence_regs(dpt);
+          pair_grads(st, dpt, BN / 2 * h);
+          uint32_t dsa[BN / 32][4];
+          sm90::acc_to_a(dpt, dsa);
+          sm90::fence();
+#pragma unroll
+          for (int kk = 0; kk < BN / 32; ++kk)
+            sm90::Wgmma<HD>::rs(
+                acc, dsa[kk],
+                d_qt + (BN / 32 * h + kk) * sm90::MN_MAJOR_STEP<HD>, 1);
+          sm90::commit();
+          sm90::wait<0>();
+          sm90::fence_regs(acc);
+        }
+      }
+    } else if (more) {
+      load_stats(it + 1, stage ^ 1);
+    }
+    __syncthreads();  // the stage and its lse, D are consumed
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// dK/dV at head dim 256: one CTA of one warpgroup per (64 kv rows, kv
+// head, batch) sweeps the query tiles of the G query heads that can see
+// its keys twice (dkdv_sweep): dV, stored through the Q stages, then dK.
+template <int HD>
+__global__ void __launch_bounds__(WG)
+flash_bwd_dkdv_split_kernel_sm90(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 const bf16* __restrict__ dO,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 int S, int T_len, int H, int KV, int causal,
+                                 int window, float scale, float softcap,
+                                 int q_offset) {
+  constexpr int TILE = Smem<HD, 1>::TILE, NO = HD / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [TILE]
+  bf16* sV = sK + TILE;                          // [TILE]
+  bf16* sQ = sV + TILE;                          // [2][TILE]
+  bf16* sdO = sQ + 2 * TILE;                     // [2][TILE]
+  float* sL = reinterpret_cast<float*>(sdO + 2 * TILE);  // [2][BN]
+  float* sD = sL + 2 * BN;                               // [2][BN]
+
+  const int k0 = blockIdx.x * 64, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const long long qrs = (long long)H * HD, kvrs = (long long)KV * HD;
+  const long long kvoff = (long long)b * T_len * kvrs + (long long)kvh * HD;
+
+  // query rows that can see these keys: from the first key's causal
+  // frontier to the last key's window end
+  const int n_keys = min(64, T_len - k0);
+  int q_begin = causal ? max(0, k0 - q_offset) : 0;
+  q_begin = (q_begin / BN) * BN;
+  int q_end = S;
+  if (window > 0) q_end = min(q_end, k0 + n_keys - 1 + window - q_offset);
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + BN - 1) / BN : 0;
+  const int w_begin = causal ? k0 - q_offset : 0;
+  const KvTiles t{q, dO, lse, delta, qrs, S, H, b, kvh, G, q_begin, n_qt,
+                  G * n_qt, k0, n_keys, w_begin, q_end, causal, window,
+                  q_offset, scale, softcap};
+
+  sm90::load_tile<64, HD, WG>(sK, k + kvoff, kvrs, k0, T_len);
+  sm90::load_tile<64, HD, WG>(sV, v + kvoff, kvrs, k0, T_len);
+  const uint64_t d_k = sm90::desc_k_major<HD>(sK);
+  const uint64_t d_v = sm90::desc_k_major<HD>(sV);
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  dkdv_sweep<HD, SWEEP_DV>(t, sQ, sdO, sL, sD, d_k, d_v, acc);
+  store_rows<HD, 1>(sQ, acc, dv + kvoff, kvrs, k0, T_len);
+  __syncthreads();  // the Q stages are read out before they refill
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  dkdv_sweep<HD, SWEEP_DK>(t, sQ, sdO, sL, sD, d_k, d_v, acc);
+  store_rows<HD, 1>(sQ, acc, dk + kvoff, kvrs, k0, T_len);
+}
+
+
 template <typename K>
 cudaError_t allow_smem_tc(K kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -916,8 +1218,20 @@ cudaError_t allow_smem_tc(K kern, size_t smem) {
 }
 
 // Warpgroups a CTA: dQ one, dK/dV two, the fastest of the four choices on
-// the H100 at the training shape (PERF.md).
-constexpr int WQ = 1, WKV = 2;
+// the H100 at the training shape (PERF.md); dK/dV one at head dim 256
+// (flash_bwd_dkdv_split_kernel_sm90).
+constexpr int WQ = 1;
+template <int HD>
+constexpr int WKV = HD > 128 ? 1 : 2;
+
+// The dK/dV kernel of a head dim: one sweep up to 128, two at 256.
+template <int HD>
+constexpr auto dkdv_kernel() {
+  if constexpr (HD > 128)
+    return flash_bwd_dkdv_split_kernel_sm90<HD>;
+  else
+    return flash_bwd_dkdv_kernel_sm90<HD, WKV<HD>>;
+}
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -931,8 +1245,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   auto ot = static_cast<const bf16*>(o);
   auto dOt = static_cast<const bf16*>(dO);
   auto kq = flash_bwd_dq_kernel_sm90<HD, WQ>;
-  auto kkv = flash_bwd_dkdv_kernel_sm90<HD, WKV>;
-  constexpr size_t smem_q = Smem<HD, WQ>::DQ, smem_kv = Smem<HD, WKV>::DKV;
+  auto kkv = dkdv_kernel<HD>();
+  constexpr size_t smem_q = Smem<HD, WQ>::DQ;
+  constexpr size_t smem_kv = Smem<HD, WKV<HD>>::DKV;
   cudaError_t e = allow_smem_tc(kq, smem_q);
   if (e == cudaSuccess) e = allow_smem_tc(kkv, smem_kv);
   if (e != cudaSuccess) return e;
@@ -945,10 +1260,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       causal, window, scale, softcap, q_offset);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  kkv<<<dim3((T_len + 64 * WKV - 1) / (64 * WKV), KV, B), WKV * WG, smem_kv,
-        st>>>(qt, kt, vt, lse, delta, dOt, static_cast<bf16*>(dk),
-              static_cast<bf16*>(dv), S, T_len, H, KV, causal, window, scale,
-              softcap, q_offset);
+  kkv<<<dim3((T_len + 64 * WKV<HD> - 1) / (64 * WKV<HD>), KV, B),
+        WKV<HD> * WG, smem_kv, st>>>(
+      qt, kt, vt, lse, delta, dOt, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, T_len, H, KV, causal, window, scale,
+      softcap, q_offset);
   return cudaGetLastError();
 }
 
@@ -978,6 +1294,7 @@ cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
     REPRO_CASE(64)
     REPRO_CASE(80)
     REPRO_CASE(128)
+    REPRO_CASE(256)
 #undef REPRO_CASE
     default:
       return cudaErrorInvalidValue;

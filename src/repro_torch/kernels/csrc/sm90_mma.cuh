@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 attention and SSD kernels:
 //  * warpgroup matrix multiply-accumulate (wgmma.mma_async m64nNk16, bf16
-//    operands, fp32 accumulators): A from shared memory at N = 64 and 128
-//    (ss, B read K-major or, with the template flag TB = 1, MN-major), A
-//    from registers at N = 32, 64, 80, 128 and 256 (rs), and at N = 64 also
+//    operands, fp32 accumulators): A from shared memory at N = 32, 64 and
+//    128 (ss, B read K-major or, with the template flag TB = 1, MN-major),
+//    A from registers at N = 32, 64, 80, 128 and 256 (rs), and at N = 64 also
 //    with B read K-major (rs_kb, the SSD's); its fence, commit and wait,
 //    and the proxy fence after generic stores into a wgmma operand;
 //  * the shared-memory matrix descriptor of the one tile layout below;
@@ -146,11 +146,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // the copies; eight consecutive threads fill one core matrix (128
 // contiguous bytes of shared memory) from 8 rows.  A tile of 64n rows is n
 // tiles of 64 rows one after the other.
-template <int R, int C, int NT>
+// FRESH reads the thread index afresh (asm volatile), so that a caller's
+// loop cannot hoist the copies' offsets out of it into registers, where
+// registers are short.
+template <int R, int C, int NT, bool FRESH = false>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
                                           long long rs, int r0, int rows) {
   constexpr int NC = C / 8;
-  for (int i = threadIdx.x; i < R * NC; i += NT) {
+  int t0 = threadIdx.x;
+  if constexpr (FRESH) asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t0));
+  for (int i = t0; i < R * NC; i += NT) {
     const int g = i >> 3;
     const int r = (g / NC) * 8 + (i & 7), c = (g % NC) * 8;
     const bool ok = r0 + r < rows;
@@ -162,7 +167,8 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
 // Warpgroup products m64nNk16, D (+)= A B, bf16 in, fp32 accumulators,
 // for the N the kernels use: ss reads A (64 x 16, K-major) and B (K-major,
 // or MN-major with TB = 1) through descriptors, at N = 64 (the scores, a
-// 64-row tile wide) and 128 (the SSD backward's state products); rs
+// 64-row tile wide), 32 (half of them) and 128 (the SSD backward's state
+// products); rs
 // takes A from four registers of each thread (acc_to_a) and reads B
 // MN-major (its transpose flag set), at N = the head dim.  accumulate = 0
 // overwrites D.
@@ -171,6 +177,23 @@ struct Wgmma;
 
 template <>
 struct Wgmma<32> {
+  // half of a 64-row tile's scores (the flash backward's dK sweep at head
+  // dim 256); TB = 1 reads B MN-major
+  template <int TB = 0>
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+  }
   __device__ __forceinline__ static void rs(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t b, int accumulate) {

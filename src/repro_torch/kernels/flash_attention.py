@@ -80,7 +80,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, s, t, h, kv, hd, int(causal), int(window or 0), float(scale),
         float(softcap or 0.0), int(q_offset), stream)
     build.launch_check(NAME, err)
-    build.count_launch(flash_attention, (b, s, t, h, kv, hd))
+    build.count_launch(flash_attention,
+                       (b, s, t, h, kv, hd, bool(causal), int(window or 0)))
     return out, lse
 
 
@@ -105,11 +106,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output ``o``, its log-sum-exp ``lse`` (B,H,S) fp32 and the output
     gradient ``do``.  Query row i sits at position q_offset + i, as in
     the forward, and as there a query row with no live key raises
-    ValueError (:func:`rows_without_keys`).  The backward is built for
-    ``build.BWD_HEAD_DIMS`` (no 256: gemma-7b serves, it does not train
-    yet), and raises ValueError on any other head_dim."""
+    ValueError (:func:`rows_without_keys`), and so does a head_dim
+    outside ``build.HEAD_DIMS``."""
     build.check_no_grad(BWD_NAME, q, k, v, o, lse, do)
-    _check(BWD_NAME, q, k, v, q_offset, window, build.BWD_HEAD_DIMS)
+    _check(BWD_NAME, q, k, v, q_offset, window, build.HEAD_DIMS)
     for arg, t in (("o", o), ("do", do)):
         build.check_operand(BWD_NAME, arg, t, 4, q.dtype)
         if t.shape != q.shape:
@@ -133,11 +133,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(window or 0), float(scale), float(softcap or 0.0), int(q_offset),
         stream)
     build.launch_check(BWD_NAME, err)
-    build.count_launch(flash_attention_bwd)
+    build.count_launch(flash_attention_bwd,
+                       (b, s, t, h, kv, hd, bool(causal), int(window or 0)))
     return dq, dk, dv
 
 
-# launches, and the forward's launches by (b, s, t, h, kv, hd)
+# launches, and launches by (b, s, t, h, kv, hd, causal, window): a
+# training step's layers that differ only in their mask (gemma2's local and
+# global layers, the VLM's self- and cross-attention at S = T) are counted
+# apart
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention.shapes = collections.Counter()
+flash_attention_bwd.shapes = collections.Counter()

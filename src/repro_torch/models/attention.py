@@ -300,16 +300,22 @@ def apply_cross_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
                      ) -> tuple[torch.Tensor, Params | None]:
     """x: (B,S,D); image_embeds: (B, N_img, vision_dim), or None at a
     decode step, which reads K/V from the cache that prefill filled (in
-    place).  The output is gated by tanh(gate)."""
+    place).  The output is gated by tanh(gate).  K and V are projected in
+    the promoted dtype of the embeddings and the weights, as JAX's einsum
+    does (a training batch carries fp32 embeddings), then cast to x's
+    dtype: the flash kernel takes one dtype."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
 
     if image_embeds is not None:
-        k = (image_embeds @ params["wk"]).reshape(b, -1, kv, hd)
-        k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
-        v = (image_embeds @ params["wv"]).reshape(b, -1, kv, hd)
+        def project(w):
+            dt = torch.promote_types(image_embeds.dtype, w.dtype)
+            return (image_embeds.to(dt) @ w.to(dt)).to(x.dtype).reshape(
+                b, -1, kv, hd)
+        k = rmsnorm(params["k_norm"], project(params["wk"]), eps=cfg.norm_eps)
+        v = project(params["wv"])
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)

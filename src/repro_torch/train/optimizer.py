@@ -18,10 +18,23 @@ at full width would otherwise hold a second copy of the params and of the
 fp32 state, and the params stay the autograd leaves they were.  The
 schedule and bias corrections run as fp32 tensors on the params' device,
 as the JAX version computes them, so no step waits for the host.
+
+A leaf is also updated in slices of at most ``SLICE_ELEMS`` elements
+(:func:`_slices`), so that the fp32 temporaries of its update are one
+slice's: grok-1's expert leaf at one layer is 1.61e9 elements, 6.4 GB a
+temporary, and its whole-leaf Adafactor update held ~32 GB at once.  This
+is how the port lays out its work on the card, not a change of the
+update: AdamW and Lion are elementwise, so any slicing gives the bits of
+the whole-leaf update; Adafactor's factored moments are per matrix over
+the last two axes, so it slices only the axes before them (a stacked
+leaf's repeat or expert axes), and its update clip, the RMS of the update
+over the whole leaf, takes a first pass over the slices for the sum of
+squares and a second to apply it (equal up to the order of that sum).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any
 
@@ -78,6 +91,34 @@ class Optimizer:
         raise NotImplementedError
 
 
+# elements of one slice of a leaf's update (:func:`_slices`): 1 GiB for
+# each fp32 temporary
+SLICE_ELEMS = 1 << 28
+
+
+def _slices(shape: torch.Size, keep: int) -> list[tuple]:
+    """Index tuples that cut a leaf of ``shape`` into slices of at most
+    ``SLICE_ELEMS`` elements along its axes before the last ``keep`` (as
+    far as those allow: a slice never cuts the last ``keep`` axes).  Each
+    tuple indexes the leading axes and ends with a range of rows of the
+    axis it cuts, so a slice is a contiguous view; one tuple ``(...,)``
+    where the whole leaf fits."""
+    n = math.prod(shape)
+    if n <= SLICE_ELEMS:
+        return [(...,)]
+    lead = max(len(shape) - keep, 0)
+    # cut axis a - 1 into ranges, a the first axis from which the trailing
+    # block fits (at most ``lead``)
+    a = next((a for a in range(1, lead + 1)
+              if math.prod(shape[a:]) <= SLICE_ELEMS), lead)
+    if a == 0:
+        return [(...,)]
+    rows = max(1, SLICE_ELEMS // math.prod(shape[a:]))
+    return [(*outer, slice(r, min(r + rows, shape[a - 1])))
+            for outer in itertools.product(*map(range, shape[:a - 1]))
+            for r in range(0, shape[a - 1], rows)]
+
+
 def _step0(params) -> torch.Tensor:
     leaves = tree_leaves(params)
     return torch.zeros((), dtype=torch.int32,
@@ -95,6 +136,13 @@ def _clip_factor(c: OptConfig, grads) -> tuple[torch.Tensor, torch.Tensor]:
     its own leaf, so no clipped copy of the gradients is held."""
     norm = global_norm(grads)
     return torch.clamp(c.grad_clip / (norm + 1e-9), max=1.0), norm
+
+
+def _sliced(upd, p, *leaves) -> None:
+    """An elementwise update ``upd(p, g, *state)`` of one leaf, slice by
+    slice (:func:`_slices`, any axis but the last)."""
+    for i in _slices(p.shape, 1):
+        upd(p[i], *(t[i] for t in leaves))
 
 
 class AdamW(Optimizer):
@@ -120,7 +168,8 @@ class AdamW(Optimizer):
             u = u + c.weight_decay * pf
             p.copy_(pf - lr * u)
 
-        tree_map(upd, params, grads, state["m"], state["v"])
+        tree_map(lambda *t: _sliced(upd, *t), params, grads, state["m"],
+                 state["v"])
         state["step"] = step
         return params, state, {"grad_norm": norm, "lr": lr}
 
@@ -148,25 +197,39 @@ class Adafactor(Optimizer):
         lr = schedule(c, step)
         decay = 1.0 - (step.float() + 1.0) ** -0.8
 
-        def upd(p, g, s):  # s: this leaf's stat dict
+        def update(g, s, moments: bool):
+            """A slice's update before clipping, from its gradient g and
+            stat slices s; ``moments``: first move the moments."""
             g = g.float() * clip
-            g2 = g.square() + 1e-30
             if "vr" in s:
                 vr, vc = s["vr"], s["vc"]
-                vr.mul_(decay).add_((1 - decay) * g2.mean(-1))
-                vc.mul_(decay).add_((1 - decay) * g2.mean(-2))
+                if moments:
+                    g2 = g.square() + 1e-30
+                    vr.mul_(decay).add_((1 - decay) * g2.mean(-1))
+                    vc.mul_(decay).add_((1 - decay) * g2.mean(-2))
                 denom = (vr[..., None] * vc[..., None, :]
                          / (vr.mean(-1, keepdim=True)[..., None] + 1e-30)
                          ).sqrt()
             else:
-                s["v"].mul_(decay).add_((1 - decay) * g2)
+                if moments:
+                    s["v"].mul_(decay).add_((1 - decay) * (g.square() + 1e-30))
                 denom = s["v"].sqrt()
-            u = g / (denom + c.eps)
-            rms = (u.square().mean() + 1e-30).sqrt()
-            u = u / torch.clamp(rms, min=1.0)  # update clipping (RMS <= 1)
-            pf = p.float()
-            u = u + c.weight_decay * pf
-            p.copy_(pf - lr * u)
+            return g / (denom + c.eps)
+
+        def upd(p, g, s):  # s: this leaf's stat dict
+            cuts = _slices(p.shape, 2 if "vr" in s else 0)
+            sq = 0.0
+            for i in cuts:  # pass 1: the moments, and the sum of squares
+                u = update(g[i], {k: v[i] for k, v in s.items()}, True)
+                sq = sq + u.square().sum()
+            rms = (sq / p.numel() + 1e-30).sqrt()
+            for i in cuts:  # pass 2 (a whole leaf keeps pass 1's update)
+                if len(cuts) > 1:
+                    u = update(g[i], {k: v[i] for k, v in s.items()}, False)
+                u = u / torch.clamp(rms, min=1.0)  # update clip: RMS <= 1
+                pf = p[i].float()
+                u = u + c.weight_decay * pf
+                p[i].copy_(pf - lr * u)
 
         # tree_map follows the params' structure, so each param leaf meets
         # its whole stat dict
@@ -198,7 +261,7 @@ class Lion(Optimizer):
             p.copy_(pf - lr * u)
             m.mul_(c.b2).add_((1 - c.b2) * g)
 
-        tree_map(upd, params, grads, state["m"])
+        tree_map(lambda *t: _sliced(upd, *t), params, grads, state["m"])
         state["step"] = step
         return params, state, {"grad_norm": norm, "lr": lr}
 

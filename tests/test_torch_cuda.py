@@ -166,16 +166,9 @@ def test_decode_wrapper_takes_the_pairs_the_switch_builds(cuda):
 
 
 def test_dense_kernels_refuse_what_is_not_built(cuda):
-    """The flash backward is not built for head_dim 256, nor decode for
-    (256, 16): both wrappers raise a ValueError naming it, and launch
-    nothing."""
-    q = torch.zeros(1, 64, 4, 256, dtype=torch.bfloat16, device=cuda)
+    """Decode is not built for (256, 16): its wrapper raises a ValueError
+    naming it, and launches nothing."""
     k = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16, device=cuda)
-    o, lse = fa.flash_attention_fwd(q, k, k)
-    n = fa.flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="head_dim 256"):
-        fa.flash_attention_bwd(q, k, k, o, lse, q)
-    assert fa.flash_attention_bwd.launches == n
     q = torch.zeros(1, 1, 32, 256, dtype=torch.bfloat16, device=cuda)
     n = da.decode_attention.launches
     with pytest.raises(ValueError, match="group size 16"):
@@ -647,6 +640,17 @@ FLASH_BWD_CASES = [  # (b, s, t, h, kv, hd, causal, window, cap)
     (1, 129, 129, 8, 2, 128, True, None, None),
     (1, 129, 129, 4, 2, 80, True, 48, 30.0),     # hd 80, window, cap
     (1, 65, 65, 8, 1, 32, True, 16, 50.0),
+    # the training cells' shapes, cut in batch and heads: head dim 256
+    # (gemma-7b; ragged, and with a window and a cap), G 6 with grok's cap
+    # 30, G 7 (deepseek-coder), gemma2's window 4096 at S = 8192 with its
+    # cap 50, and the VLM's non-causal cross-attention S = T = 2048
+    (2, 300, 300, 4, 2, 256, True, None, None),
+    (1, 129, 129, 2, 2, 256, True, 64, 50.0),
+    (1, 1, 1, 2, 1, 256, True, None, None),
+    (1, 300, 300, 12, 2, 128, True, None, 30.0),
+    (1, 200, 200, 14, 2, 128, True, None, None),
+    (1, 8192, 8192, 2, 1, 128, True, 4096, 50.0),
+    (1, 2048, 2048, 8, 1, 128, False, None, None),
 ]
 
 
@@ -1015,3 +1019,89 @@ def test_moe_mla_vlm_on_card_match_cpu(cuda, arch, widths):
     assert launched[1] == (n["attn"] + 2 * n["cross_attn"], n["attn"])
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+def _pinned_routes(record, replay=None):
+    """A patch of ``ref.topk_gating`` that appends each MoE router call's
+    choices to ``record`` and, with ``replay`` (another run's record),
+    makes that run's choices instead, in call order, weighted from this
+    run's own logits as ``topk_gating`` weights them (softmax routers)."""
+    from unittest import mock
+    real = ref.topk_gating
+    pinned = None if replay is None else iter(replay)
+
+    def topk_gating(logits, k, *, router="softmax", bias=None):
+        if pinned is None:
+            w, idx = real(logits, k, router=router, bias=bias)
+        else:
+            idx = next(pinned).to(logits.device)
+            w = torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1)
+        record.append(idx.cpu())
+        return w, idx
+
+    return mock.patch.object(ref, "topk_gating", topk_gating)
+
+
+@pytest.mark.parametrize("arch,widths", [
+    ("gemma2-27b", dict(d_model=128, num_heads=4, num_kv_heads=2,
+                        head_dim=32, d_ff=256, attn_scale=1 / 12)),
+    ("gemma-7b", dict(d_model=128, num_heads=2, num_kv_heads=2,
+                      head_dim=256, d_ff=256)),           # head_dim 256
+    ("deepseek-coder-33b", dict(d_model=128, num_heads=14, num_kv_heads=2,
+                                head_dim=32, d_ff=256)),  # G = 7
+    ("grok-1-314b", dict(d_model=128, num_heads=12, num_kv_heads=2,
+                         head_dim=128, d_ff=256)),          # G = 6, cap 30
+    ("llama-3.2-vision-90b", dict(d_model=128, num_heads=4, num_kv_heads=2,
+                                  head_dim=128, d_ff=256)),
+])
+def test_trained_families_gradients_on_card_match_cpu(cuda, arch, widths):
+    """Small fp32 models of the five families that train on the card, remat
+    "full": forward_loss and every gradient through the kernels (flash and
+    rmsnorm, forward and backward; the VLM with image embeddings and a
+    nonzero gate, grok's MoE with its router choices pinned to the CPU
+    run's) against the CPU plain path, with one flash backward an
+    attention or cross-attention layer."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.models.common import tree_leaves, tree_map, tree_paths
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              dtype="float32", remat="full", **widths)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for _, a in tree_paths(params):
+        if a.dim() <= 1:  # norm scales, biases and gates: not 0
+            a.add_(torch.rand(a.shape, generator=gen) + 0.5)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41)).astype(
+        np.int32))
+    img = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32))
+        if cfg.vision_dim else None)
+    n_attn = sum(sum(s.kind in ("attn", "cross_attn") for s in g.pattern)
+                 * g.repeat for g in cfg.groups)
+    assert n_attn
+    res, routes, launched = [], [], 0
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(True),
+                     params)
+        leaves = tree_leaves(p)
+        record = []
+        with _pinned_routes(record, routes[0] if routes else None):
+            n = fa.flash_attention_bwd.launches
+            loss, _ = model.forward_loss(
+                p, cfg, toks[:, :-1].to(dev), toks[:, 1:].to(dev),
+                None if img is None else img.to(dev))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            launched = fa.flash_attention_bwd.launches - n
+        routes.append(record)
+        res.append((loss.detach().cpu(),
+                    [None if g is None else g.cpu() for g in grads]))
+    assert launched == n_attn
+    assert bool(routes[0]) == (cfg.moe is not None)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-4, atol=2e-4)
+    for a, b in zip(g_gpu, g_cpu):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert float((a - b).norm()) <= 1e-3 * max(float(b.norm()), 1e-30)
+

@@ -516,10 +516,10 @@ def test_decode_wrapper_refuses_pairs_not_built(hd, g):
 
 
 @pytest.mark.parametrize("hd", [128, 256])
-def test_flash_wrappers_take_head_dim_256_forward_only(hd):
-    """head_dim 256 reaches the forward kernel and not the backward,
-    which is not built for it: its wrapper raises a ValueError that names
-    the head dim and launches nothing (library and CUDA checks mocked)."""
+def test_flash_wrappers_take_head_dim_256_forward_and_backward(hd):
+    """head_dim 256 reaches both kernels: the forward's C call and the
+    backward's carry the head dim and each wrapper counts one launch
+    (library and CUDA checks mocked)."""
     from unittest import mock
 
     from repro_torch.kernels import build
@@ -536,19 +536,28 @@ def test_flash_wrappers_take_head_dim_256_forward_only(hd):
         fa.flash_attention.shapes.clear()
         fa.flash_attention(q, k, k)
         assert calls.pop()[11] == hd
-        # the forward's launches by (b, s, t, h, kv, hd)
-        assert fa.flash_attention.shapes == {(1, 64, 64, 4, 2, hd): 1}
+        # the forward's launches by (b, s, t, h, kv, hd, causal, window)
+        assert fa.flash_attention.shapes == {
+            (1, 64, 64, 4, 2, hd, True, 0): 1}
+        fa.flash_attention(q, k, k, causal=False)
+        fa.flash_attention(q, k, k, window=16)
+        calls.clear()
+        assert fa.flash_attention.shapes == {
+            (1, 64, 64, 4, 2, hd, True, 0): 1,
+            (1, 64, 64, 4, 2, hd, False, 0): 1,
+            (1, 64, 64, 4, 2, hd, True, 16): 1}
         n = fa.flash_attention_bwd.launches
-        if hd == 256:
-            with pytest.raises(ValueError, match="head_dim 256 not in"):
-                fa.flash_attention_bwd(q, k, k, q, lse, q)
-            assert not calls and fa.flash_attention_bwd.launches == n
-        else:
-            fa.flash_attention_bwd(q, k, k, q, lse, q)
-            assert calls.pop()[16] == hd
+        fa.flash_attention_bwd.shapes.clear()
+        fa.flash_attention_bwd(q, k, k, q, lse, q)
+        assert calls.pop()[16] == hd
+        assert not calls and fa.flash_attention_bwd.launches == n + 1
+        # the backward's by (b, s, t, h, kv, hd, causal, window)
+        assert fa.flash_attention_bwd.shapes == {
+            (1, 64, 64, 4, 2, hd, True, 0): 1}
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
     fa.flash_attention.shapes.clear()
+    fa.flash_attention_bwd.shapes.clear()
 
 
 # ---------------------------------------------------------------------------

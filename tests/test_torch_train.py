@@ -60,6 +60,11 @@ FLASH_CASES = [  # tests/test_kernels.py
     (2, 512, 4, 1, 64, True, 128, None),
     (1, 128, 4, 4, 32, False, None, None),
     (1, 384, 6, 2, 64, True, 256, 30.0),
+    # the training shapes' head dim 256 (gemma-7b), G 6 with grok's cap 30
+    # and G 7 (deepseek-coder-33b)
+    (1, 128, 2, 2, 256, True, None, None),
+    (1, 192, 6, 1, 128, True, None, 30.0),
+    (2, 128, 7, 1, 128, True, None, None),
 ]
 
 
@@ -204,7 +209,9 @@ def test_ops_run_the_autograd_function_only_when_recording():
 # model: forward_loss and its gradients against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=["llama3.2-1b", "zamba2-2.7b"])
+@pytest.fixture(scope="module", params=["llama3.2-1b", "zamba2-2.7b",
+                                        "gemma-7b", "gemma2-27b",
+                                        "deepseek-coder-33b"])
 def setup(request):
     cfg_j = jconfigs.get_config(request.param, smoke=True)
     cfg_t = tconfigs.get_config(request.param, smoke=True)
@@ -439,6 +446,51 @@ def test_adafactor_state_is_factored():
                        jax.random.PRNGKey(0)))
     got = jax.tree.map(lambda t: t.shape, bridge.params_to_numpy(st))
     assert got == jax.tree.map(lambda t: t.shape, want)
+
+
+# leaves of the sliced-update test: a stacked leaf, a matrix, a vector, a
+# scalar; SLICE_ELEMS forced down to 24 cuts the first two (and the
+# vector, in Adafactor's unfactored moments)
+SLICED_SHAPES = {"stack": (3, 4, 6, 5), "mat": (40, 7), "vec": (50,),
+                 "s": ()}
+
+
+@pytest.mark.parametrize("name", ["adamw", "lion", "adafactor"])
+def test_sliced_update_equals_whole_leaf_update(name, monkeypatch):
+    """Three steps with every large leaf updated in slices (SLICE_ELEMS
+    forced small) against the same steps on whole leaves: AdamW and Lion
+    are elementwise, so params and state are bit-equal; Adafactor's
+    update clip sums the squares over the slices in another order, within
+    1e-6 rel. L2 a leaf."""
+    rng = np.random.default_rng(9)
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in SLICED_SHAPES.items()}
+    grads = [{k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in SLICED_SHAPES.items()} for _ in range(3)]
+
+    def run(limit):
+        monkeypatch.setattr(topt, "SLICE_ELEMS", limit)
+        opt = topt.make_optimizer(name, **OPT_KW)
+        params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        state = opt.init(params)
+        for g in grads:
+            params, state, _ = opt.apply(params, g, state)
+        return tree_leaves({"p": params, "s": state})
+
+    whole = run(topt.SLICE_ELEMS)
+    monkeypatch.setattr(topt, "SLICE_ELEMS", 24)
+    keep = 2 if name == "adafactor" else 1
+    assert len(topt._slices(torch.Size(SLICED_SHAPES["stack"]), keep)) > 1
+    assert len(topt._slices(torch.Size(SLICED_SHAPES["mat"]), 1)) > 1
+    sliced = run(24)
+    assert len(whole) == len(sliced)
+    for a, w in zip(sliced, whole):
+        if name == "adafactor":
+            a, w = a.double(), w.double()
+            assert float((a - w).norm()) <= 1e-6 * max(float(w.norm()),
+                                                       1e-30)
+        else:
+            assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("name", ["adafactor", "lion"])
