@@ -9,6 +9,7 @@
     python3 chip_smoke.py --parity-sweep
     python3 chip_smoke.py --logits-gap
     python3 chip_smoke.py --xlstm-depth
+    python3 chip_smoke.py --process-runtime
 
 The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
@@ -27,7 +28,8 @@ layers), with its softcaps on and off, and at full depth with one op at
 a time on its plain version (``logits_gap``).  The eighth only trains xlstm-350m as the training
 slice does at its published widths with one and with all three of its
 (7 mLSTM + 1 sLSTM) repeats, and prints how far each depth's loss falls
-(``xlstm_depth``).  The first form:
+(``xlstm_depth``).  The ninth only builds the kernels, timed by library,
+and runs phase 1b (``run_process_runtime``).  The first form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
@@ -37,7 +39,35 @@ slice does at its published widths with one and with all three of its
    HGMMA
    (tensor-core)
    instructions in each bf16 flash and SSD kernel's SASS (the SSD
-   backward's too).
+   backward's too).  Decode builds as 11 units at once
+   (``kernels/build.py::UNITS``); each library's seconds are printed.
+1b. The paper's runtime on the card's host (``run_process_runtime``):
+   ``repro_torch.core``'s process runtime, whose workers are spawned by
+   this process while it holds a CUDA context.  (a) It resolves to spawn
+   and runs a ``pipe`` request on ``socket``; no worker initialises CUDA
+   (``rt_torch_state``; a worker imports this script as ``__mp_main__``,
+   whose top level then imports no torch and does no work but imports
+   and constants).  (b) ``benchgraphs.suite(scale=0.05)`` and the value
+   graphs ``value_reduction`` and ``array_reduction``, each an epoch of a
+   warm Cluster of ``RT_PARITY_WORKERS``, on the thread runtime and on
+   process workers under both servers with the selector and asyncio
+   drivers, p2p on, and the relay (p2p off) once a server: equal result
+   sets and task counts, equal values for the value graphs; no relay byte
+   with p2p on.  (c) ``kill_worker_after`` SIGKILLs a worker mid-graph:
+   the same values.  (d) The zero-worker measurement at its published
+   size (``merge(10000)`` and ``merge(25000)``, the suite's first two
+   graphs at scale 1.0) on min(8, cores) workers, both servers, batching
+   on and off: makespan, the server's time a task, wire bytes and frames
+   a task, frames sent and coalesced; with batching off the Dask wire
+   must move 2 or more frames a task and the static wire fewer.  The
+   Dask wire's per-frame merge(25000) is waited for 3 s and reported as
+   far as it got (``RT_PER_FRAME_WAIT_S``: the host's loopback TCP takes
+   ~170 s over it).  (e) The simulator: ws against random over
+   ``suite(scale=0.1)``, rsds against dask at ``merge(8000)`` on 168
+   workers; the ratios are printed, not checked.  Each pool's start (to
+   its first task's end), each part's seconds and the phase's are printed
+   beside its budget (``RT_BUDGET_S``); pools close on threads of their
+   own while the next runs, and the phase ends when all have closed.
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
    attention at head dims 32, 64, 80, 128 and 256 and at G = 7 and 6
@@ -178,7 +208,8 @@ slice does at its published widths with one and with all three of its
    (5 microbatch functions started), and within 5e-3 (abs and rel) of one
    full-batch ``make_train_step`` step; live tensor bytes equal after
    each step; each step's wall time, makespan and ``server_busy`` beside
-   its microbatch functions' walls.  Then xlstm-350m and musicgen-medium
+   its microbatch functions' walls.  Then xlstm-350m (at 8 of its 24
+   layers, ``TRAIN_CUT``) and musicgen-medium
    trained as llama (8 ``Trainer`` steps of 4 x 2048, AdamW, each
    config's own remat "dots"; gradient parity in ``PARITY_DTYPE``, for
    xlstm in fp32 with bf16's reported; the loss must fall, by
@@ -240,12 +271,18 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # a worker of the process runtime (run_process_runtime) imports this
+    # script under that name; it needs no torch, whose import takes ~9 s
+    # a process on the card's host
+    import torch
 
 ROOT = Path(__file__).resolve().parent
 
@@ -361,6 +398,19 @@ WIDE_PLAIN_ITERS = 5
 # gemma2-27b trains at its context, where its local layers' 4096 window
 # masks (it never does at S = 2048)
 TRAIN_SHAPE = {"gemma2-27b": (1, 8192)}
+# a training slice's depth where it is cut (whole repeats, every width as
+# published): xlstm-350m trains at one of its three (7 mLSTM + 1 sLSTM)
+# repeats.  Its step is host-bound (579503 launches at 24 layers: the
+# sLSTM's Python loop, 19-25 s a step on the card's host), so at full
+# depth its training took 259-292 s of a script that ran 1100-1159 s, and
+# one run past the script's 1200 s time limit; at 8 layers ~100 s
+# (``--xlstm-depth`` still trains all three repeats)
+TRAIN_CUT = {XLSTM_ARCH: 8}
+# the depth of a training slice's gradient parity where it is cut below
+# the trained model's: zamba2's fp32 plain path runs the SSD's sequential
+# recurrence, 84-100 s at its 54 layers; 2 of 9 repeats keep the shared
+# attention block's gradient summed over two uses
+PARITY_CUT = {ZTRAIN_ARCH: 12}
 TRAIN_OPT = dict(lr=1e-3, warmup=2, weight_decay=0.0)
 LOSS_MARGIN = 0.5        # nats the loss must fall over the 8 steps
 # where an arch's margin is another: xlstm-350m's bf16 gradients are as
@@ -369,7 +419,8 @@ LOSS_MARGIN = 0.5        # nats the loss must fall over the 8 steps
 # as sensitive, tests/test_torch_xlstm.py::
 # test_bf16_sensitivity_matches_jax_at_full_width), and at TRAIN_OPT's lr
 # its loss falls by hundredths of a nat in 8 steps at its full depth
-# (about a nat at one of its three repeats, --xlstm-depth); it must fall
+# (0.6-1 nat at one of its three repeats, ``TRAIN_CUT``, --xlstm-depth); it
+# must fall
 LOSS_MARGIN_OF = {XLSTM_ARCH: 0.0}
 # the held-out check: after the 8 steps the loss on an unseen batch must
 # stay above the fixed batch's by LOSS_MARGIN, or, for an arch here, by
@@ -487,22 +538,29 @@ RMS_TIMED_ROWS = (MAX_BATCH, 32, 64, 128, 192, 256, 384, 512, 768, 1024,
 
 # (arch, published widths: layers, d, heads, kv heads, head dim, d_ff,
 #  vocab, dtype, mamba (d_state, d_conv, expand, head_dim, chunk) or None;
-#  layers run, where the depth is cut, else None)
+#  layers run, where the depth is cut, else None).  zamba2, gemma2-27b,
+# gemma-7b and xlstm served at full depth until the script outgrew its
+# 1200 s time limit (1217 s on an H100 machine whose host ran the
+# host-bound phases 20-50% slower than another run of the same tree took
+# them): their depth is cut to whole repeats of each pattern, every width
+# as published
 SLICES = [
     ("llama3.2-1b", (16, 2048, 32, 8, 64, 8192, 128256, "bfloat16", None),
      None),
+    # 3 of 9 repeats of (5 mamba2 + 1 shared attention)
     ("zamba2-2.7b", (54, 2560, 32, 32, 80, 10240, 32000, "bfloat16",
-                     (64, 4, 2, 64, 128)), None),
+                     (64, 4, 2, 64, 128)), 18),
+    # 8 of 23 (local, global) pairs
     ("gemma2-27b", (46, 4608, 32, 16, 128, 36864, 256000, "bfloat16", None),
-     None),
+     16),
     ("gemma-7b", (28, 3072, 16, 16, 256, 24576, 256000, "bfloat16", None),
-     None),
+     8),
     # 16 of 62 layers, for chip time (full depth: 33.3e9 params, 66.7 GB)
     ("deepseek-coder-33b", (62, 7168, 56, 8, 128, 19200, 32256, "bfloat16",
                             None), 16),
     # head_dim is the config's; the mLSTM's heads are 2048 / 4 = 512 wide
-    # and the sLSTM's 1024 / 4 = 256
-    (XLSTM_ARCH, (24, 1024, 4, 4, 256, 0, 50304, "bfloat16", None), None),
+    # and the sLSTM's 1024 / 4 = 256; 1 of 3 (7 mLSTM + 1 sLSTM) repeats
+    (XLSTM_ARCH, (24, 1024, 4, 4, 256, 0, 50304, "bfloat16", None), 8),
     # served through prefill/decode_step (run_codebook_slice)
     (MUSIC_ARCH, (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", None),
      None),
@@ -949,6 +1007,7 @@ def check_kernels():
     rng = np.random.default_rng(0)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
+        t0 = time.perf_counter()
         bf16 = dtype == torch.bfloat16
         _check_flash(rng, dtype, FLASH_SWEEP, out, None)
         _check_flash(rng, dtype, FLASH_SWEEP_DENSE, out, None)
@@ -963,8 +1022,11 @@ def check_kernels():
         _check_rmsnorm(rng, dtype, RMS_SWEEP, out, None)
         _check_flash_bwd(rng, dtype, FLASH_SWEEP[:5] + FLASH_BWD_SWEEP_WIDE,
                          out, None)
+        print(f"phase 2 sweeps in {dtype}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         if not bf16:
             continue
+        t0 = time.perf_counter()
         # the slices' shapes: llama (hd 64, GQA 32/8), zamba2 (hd 80, 32/32)
         for key, (h, kv, hd) in (("flash:llama3.2-1b", (32, 8, 64)),
                                  ("flash:zamba2-2.7b", (32, 32, 80))):
@@ -1072,6 +1134,8 @@ def check_kernels():
             _check_flash(rng, dtype, [(MAX_BATCH, s, 64, 8, 128, False, None,
                                        None)], out, f"flash:{VISION}:{call}",
                          keep=s, t=CROSS_T)
+        print(f"phase 2 the slices' shapes: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     return out
 
 
@@ -1781,7 +1845,7 @@ def _ssd_row(args, h0, err):
         flops=2 * macs, nbytes=nbytes,
         source="src/repro_torch/kernels/csrc/mamba_chunk_scan.cu",
         replaces="src/repro/kernels/mamba_chunk_scan.py:83",
-        plain_iters=25 if s * b <= 512 else 3,  # sequential: S steps
+        plain_iters=3,  # sequential: S steps, 0.2-1.3 s a call
         kernel=lambda: mcs.mamba_chunk_scan(*args, h0=h0),
         plain=lambda: ref.mamba_chunk_scan(*args, h0=h0),
         library=None)  # no single PyTorch call computes the SSD
@@ -1954,9 +2018,11 @@ def kernel_numbers(inputs, launches, rms_calls, card):
                                      f"{r['shape'][-1]}"]
             extra = {"call": call[0], "per_call": per}
         ms = time_ms(r["kernel"], flush)
+        # a plain version timed over a few runs (a sequential loop of
+        # 0.2-2 s a call) is warmed up once
         plain_ms = time_ms(r["plain"], flush,
                            iters=r.get("plain_iters", 25),
-                           warmup=min(3, r.get("plain_iters", 25)))
+                           warmup=1 if r.get("plain_iters", 25) <= 3 else 3)
         library_ms = (None if r["library"] is None
                       else time_ms(r["library"], flush))
         if "library_call" in r:  # the library's attention, (B, H, S, hd)
@@ -3012,11 +3078,13 @@ def grad_parity(cfg, params, check=True):
                 "worst_grad_rel_l2": rels[worst], "grad_rel_l2": rels}
 
     plain_routes = []
+    t0 = time.perf_counter()
     with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
             mock.patch.object(ops, "rmsnorm", ref.rmsnorm), \
             mock.patch.object(ops, "mamba_chunk_scan", ref.mamba_chunk_scan), \
             _routes(plain_routes):
         loss_p, grads_p = run()
+    plain_s = time.perf_counter() - t0
     if cfg.moe:
         with _routes([], plain_routes):
             res = compare(*run(), ", routes pinned to the plain path's")
@@ -3030,6 +3098,10 @@ def grad_parity(cfg, params, check=True):
         del grads_k
     else:
         res = compare(*run(), "")
+    res["seconds"] = {"plain_path": plain_s,
+                      "all": time.perf_counter() - t0}
+    print(f"{cfg.name} gradient parity ({cfg.dtype}): "
+          f"{res['seconds']['all']:.1f} s, the plain path {plain_s:.1f} s")
     if check and not (res["loss_rel"] <= PARITY_LOSS_REL
                       and res["worst_grad_rel_l2"] <= PARITY_GRAD_REL_L2):
         raise AssertionError(f"gradient parity failed: {res}")
@@ -3298,9 +3370,11 @@ def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
     ``Trainer`` (the config's own remat: "full" for llama, zamba2 and the
     ``WIDE_TRAIN`` families, "dots" for xlstm and musicgen; 8 steps of
     ``_train_shape`` tokens on a fixed batch, deterministic algorithms;
-    AdamW, or a ``WIDE_TRAIN`` family's optimizer at its depth cut), after
+    AdamW, or a ``WIDE_TRAIN`` family's optimizer at its depth cut; at
+    ``TRAIN_CUT``'s depth where it names ``arch``), after
     a gradient-parity check at (2, 512) from the same params in
-    ``PARITY_DTYPE[arch]`` (for xlstm also the parity in bf16, reported
+    ``PARITY_DTYPE[arch]`` (at ``PARITY_CUT``'s depth where it names
+    ``arch``; for xlstm also the parity in bf16, reported
     and not checked); llama also the restart check, xlstm the sLSTM scan's
     share of a step (``slstm_scan_ms``).  Returns its launch
     counts, its rmsnorm launches as ``run_slice`` does (the call: a
@@ -3308,11 +3382,13 @@ def run_training(card, arch=TRAIN_ARCH, key=TRAIN_KEY):
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.optimizer import make_optimizer
-    layers, opt_name = WIDE_TRAIN.get(arch, (None, "adamw"))
+    layers, opt_name = WIDE_TRAIN.get(arch, (TRAIN_CUT.get(arch), "adamw"))
     cfg = published_config(arch, _widths(arch), layers)
     batch, seq = _train_shape(arch)
-    parity_cfg = dataclasses.replace(cfg, dtype=PARITY_DTYPE[arch])
-    params = _params(cfg, parity_cfg)
+    pcfg = (published_config(arch, _widths(arch), PARITY_CUT[arch])
+            if arch in PARITY_CUT else cfg)
+    parity_cfg = dataclasses.replace(pcfg, dtype=PARITY_DTYPE[arch])
+    params = _params(pcfg, parity_cfg)
     if cfg.vision_dim:  # gates at 0 would zero the cross-attention's
         with torch.no_grad():  # gradients but the gate's
             _open_gates(params, torch.Generator(device="cuda").manual_seed(1))
@@ -3809,11 +3885,18 @@ def hgmma_counts(build):
     if not os.path.exists(tool):
         return None
     counts = {}
-    for lib in ("flash_attention", "flash_attention_bwd", "mamba_chunk_scan",
-                "mamba_chunk_scan_bwd"):
-        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+    from concurrent.futures import ThreadPoolExecutor
+
+    def sass_of(lib):
+        return subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
+
+    with ThreadPoolExecutor(4) as ex:     # the disassemblies run at once
+        sasses = list(ex.map(sass_of, (
+            "flash_attention", "flash_attention_bwd", "mamba_chunk_scan",
+            "mamba_chunk_scan_bwd")))
+    for sass in sasses:
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
@@ -3828,6 +3911,324 @@ def hgmma_counts(build):
             elif fn and "HGMMA" in line:
                 counts[fn] += 1
     return counts
+
+
+# the paper's runtime on the card's host (run_process_runtime)
+RT_SCALE = 0.05                # (b): benchgraphs.suite at this scale
+RT_ZERO_SIZES = (10000, 25000)  # (d): the suite's first two merges at 1.0
+RT_SIM_SCALE = 0.1             # (e): the simulator's suite
+RT_BUDGET_S = 45.0             # what the phase should take
+# (d)'s wait for a graph on the Dask wire with batching off, by size:
+# over the card's host's loopback TCP its one-segment-a-frame traffic
+# (compute and finished frames, and update-graph frames to every worker)
+# ran merge(10000) in 2.6 s to more than 60 s and merge(25000) in 169-174
+# s (pipes, which only a forked pool has: 3.1 s); a graph not done by
+# then is reported as far as it got
+RT_PER_FRAME_WAIT_S = {10000: 5.0, 25000: 2.0}
+# workers of (a)-(c)'s pools: a process takes ~0.2 s to start on the
+# card's host, and parity needs no more than a few
+RT_PARITY_WORKERS = 3
+
+
+def rt_torch_state():
+    """Task for the process runtime's workers: what this worker knows of
+    torch.  A worker imports this script as ``__mp_main__``, which then
+    imports no torch; it must not initialise CUDA in any case."""
+    t = sys.modules.get("torch")
+    if t is None:
+        return "absent"
+    return f"cuda_initialized={t.cuda.is_initialized()}"
+
+
+def _rt_same(a, b):
+    if sorted(a) != sorted(b):
+        return False
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def _rt_finished(cluster):
+    return sum(cluster.runtime.run_stats()["tasks_per_worker"].values())
+
+
+def _rt_run_graphs(cluster, graphs):
+    """Submit each graph as an epoch of the warm ``cluster``, one at a
+    time; {name: what it gave}."""
+    out = {}
+    for g in graphs:
+        done0 = _rt_finished(cluster)
+        gf = cluster.client.submit_graph(g)
+        res = gf.result(120.0)
+        e = gf.epoch
+        assert e.error is None and e.remaining == 0, (g.name, e.error)
+        out[g.name] = {"n_tasks": e.n_tasks, "values": res,
+                       "finished": _rt_finished(cluster) - done0}
+    return out
+
+
+def _rt_zero_row(c, g, wait):
+    """One zero-worker graph ``g`` on the warm pool ``c``, waited for at
+    most ``wait`` seconds: its figures a task, or, where it did not
+    finish, the tasks done and frames moved so far."""
+    st0 = c.runtime.run_stats()
+    t0 = time.perf_counter()
+    gf = c.client.submit_graph(g)
+    finished = gf.wait(wait)
+    wall = time.perf_counter() - t0
+    st1 = c.runtime.run_stats()
+    e, k = gf.epoch, g.n_tasks
+    row = {"finished": finished, "wall_s": wall,
+           "n_frames_sent": st1["n_frames_sent"] - st0["n_frames_sent"],
+           "frames_coalesced":
+               st1["frames_coalesced"] - st0["frames_coalesced"]}
+    if not finished:    # remaining is -1 until the server ingests it
+        row["tasks_done"] = e.n_tasks - e.remaining if e.remaining >= 0 \
+            else 0
+        row["wire_frames_so_far"] = st1["wire_frames"] - st0["wire_frames"]
+        return row
+    row.update(makespan_s=e.makespan,
+               server_us_a_task=e.server_busy / k * 1e6,
+               wire_bytes_a_task=(st1["wire_bytes"] - st0["wire_bytes"]) / k,
+               wire_frames_a_task=(st1["wire_frames"] - st0["wire_frames"])
+               / k)
+    return row
+
+
+def run_process_runtime(n_workers=None):
+    """The paper's runtime comparison on OS-process workers started by a
+    parent that holds a CUDA context: (a) spawn under CUDA, (b) parity
+    with the thread runtime, (c) a SIGKILLed worker, (d) the zero-worker
+    measurement at its published size, (e) the simulator.  Returns the
+    figures it printed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import Cluster, benchgraphs, simulate
+    from repro_torch.ft.faults import kill_worker_after
+
+    t_phase = time.perf_counter()
+    torch.ones(1, device="cuda")
+    assert torch.cuda.is_initialized(), "the parent holds no CUDA context"
+    nw = n_workers or min(8, os.cpu_count() or 1)
+    npar = min(RT_PARITY_WORKERS, nw)
+    starts, out = {}, {"n_workers": {"a-c": npar, "d": nw}}
+    parts, mark = {}, [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - mark[0], 2)
+        mark[0] = now
+
+    closing = []
+
+    def retire(c, force=False):
+        """Close a pool on a thread of its own (its workers exit while the
+        phase goes on); the phase joins them all."""
+        t = threading.Thread(target=c.close, kwargs={"force": force})
+        t.start()
+        closing.append((t, c))
+
+    def join_closing():
+        while closing:
+            t, c = closing.pop()
+            t.join(60.0)
+            assert not t.is_alive() and not any(
+                pr.is_alive() for pr in c.runtime.procs), \
+                "a pool did not close"
+
+    def cluster(label, n=npar, **kw):
+        """A warm process pool; its start is timed to the end of a first
+        task (the server loop serves once every worker has connected)."""
+        t0 = time.perf_counter()
+        c = Cluster(n_workers=n, runtime="process", timeout=300.0, **kw)
+        f = c.client.submit(abs, -1)
+        assert c.runtime.wait_epoch(f.eid, 120.0), label
+        starts[label] = round(time.perf_counter() - t0, 3)
+        f.release()
+        return c
+
+    # The pools start at once, on threads: (a)-(c)'s six run their
+    # checks as they come up, and (d)'s four wait, idle, to be measured
+    # one at a time once the rest are done (a pool's start is the phase's
+    # largest cost, ~1-2 s a pool on the card's host).
+    graphs = benchgraphs.suite(scale=RT_SCALE) + [
+        benchgraphs.value_reduction(24, fan=4),
+        benchgraphs.array_reduction(16, elems=1024, fan=4)]
+    value_graphs = {graphs[-2].name, graphs[-1].name}
+    parity_keys = [(server, driver, p2p) for server in ("dask", "rsds")
+                   for driver, p2p in (("selector", True), ("asyncio", True),
+                                       ("selector", False))]
+    zero_keys = [(server, batching) for server in ("dask", "rsds")
+                 for batching in (True, False)]
+
+    def parity(key):
+        """One (b) pool's graphs, (a)'s checks on the first pool and (c)'s
+        kill on the rsds selector pool; the pool closes in the background."""
+        server, driver, p2p = key
+        first = key == parity_keys[0]
+        c = cluster(f"{server} {driver} {'p2p' if p2p else 'relay'}",
+                    server=server, driver=driver, p2p=p2p,
+                    simulate_durations=False,
+                    transport="pipe" if first else "socket")
+        res = {}
+        try:
+            if first:
+                # the pool (a) is about: spawned, pipe asked
+                res["a"] = {
+                    "start": sorted({type(pr._popen).__module__.rsplit(
+                        ".", 1)[-1] for pr in c.runtime.procs}),
+                    "transport": c.runtime.run_stats()["transport"],
+                    "worker_torch": sorted(set(c.client.gather(
+                        [c.client.submit(rt_torch_state)
+                         for _ in range(4 * npar)], 60.0))),
+                    "workers_ran": len(
+                        c.runtime.run_stats()["tasks_per_worker"])}
+            res["got"] = _rt_run_graphs(c, graphs)
+            res["stats"] = c.runtime.run_stats()
+            if key == ("rsds", "selector", True):
+                # (c) a SIGKILLed worker mid-graph: the same values
+                g = benchgraphs.value_reduction(24, fan=4)
+                sleeps = c.client.map(time.sleep, [0.2] * (2 * npar))
+                timer = kill_worker_after(c.runtime, 1, 0.1)
+                res["killed"] = c.client.submit_graph(g).result(120.0)
+                c.client.gather(sleeps, 120.0)
+                timer.join(30.0)
+                proc = c.runtime.procs[1]
+                proc.join(10.0)
+                res["c"] = {"dead": 1 in c.runtime.dead,
+                            "exitcode": proc.exitcode}
+        finally:
+            retire(c)
+        return res
+
+    with ThreadPoolExecutor(len(parity_keys) + len(zero_keys)) as ex:
+        zero_pools = {
+            (server, batching): ex.submit(
+                cluster, f"{server} zero "
+                f"{'batched' if batching else 'per-frame'}", n=nw,
+                server=server, zero_worker=True, batching=batching)
+            for server, batching in zero_keys}
+        runs = {key: ex.submit(parity, key) for key in parity_keys}
+        want = {}
+        for server in ("dask", "rsds"):
+            with Cluster(server=server, runtime="thread", n_workers=npar,
+                         simulate_durations=False, timeout=300.0) as ct:
+                want[server] = _rt_run_graphs(ct, graphs)
+        runs = {key: f.result() for key, f in runs.items()}
+        zero_pools = {key: f.result() for key, f in zero_pools.items()}
+
+    # (a) spawn under CUDA: pipe asked, socket run, no worker has CUDA
+    a = runs[parity_keys[0]]["a"]
+    print(f"runtime (a): start {a['start']}, transport asked pipe, ran "
+          f"{a['transport']}; workers' torch: {a['worker_torch']} (over "
+          f"{a['workers_ran']} of {npar} workers)", flush=True)
+    assert a["start"] == ["popen_spawn_posix"], a
+    assert a["transport"] == "socket", a
+    assert a["worker_torch"] and set(a["worker_torch"]) <= {
+        "absent", "cuda_initialized=False"}, a
+    out["a"] = a
+
+    # (b) parity with the thread runtime
+    checked = []
+    for (server, driver, p2p), res in runs.items():
+        label = f"{server} {driver} {'p2p' if p2p else 'relay'}"
+        got, st = res["got"], res["stats"]
+        for g in graphs:
+            w, r = want[server][g.name], got[g.name]
+            assert r["n_tasks"] == w["n_tasks"] == g.n_tasks, label
+            assert r["finished"] >= g.n_tasks, (label, g.name)
+            assert sorted(r["values"]) == sorted(w["values"]), \
+                (label, g.name)
+            if g.name in value_graphs:
+                assert _rt_same(r["values"], w["values"]), (label, g.name)
+        # with p2p on no payload byte rides through the server (how many
+        # move worker to worker depends on where tasks ran)
+        if p2p:
+            assert st["relay_bytes"] == 0, (label, st["relay_bytes"])
+        else:
+            assert st["relay_bytes"] > 0 == st["p2p_bytes"], label
+        checked.append(f"{label}: relay {st['relay_bytes']} B, "
+                       f"p2p {st['p2p_bytes']} B")
+    print(f"runtime (b): {len(graphs)} graphs "
+          f"({sum(g.n_tasks for g in graphs)} tasks) equal to the thread "
+          f"runtime's on {checked}", flush=True)
+    out["b"] = {"graphs": [g.name for g in graphs], "runs": checked}
+
+    # (c) the kill
+    res = runs[("rsds", "selector", True)]
+    assert res["c"]["dead"] and res["c"]["exitcode"] == -9, res["c"]
+    assert _rt_same(res["killed"], want["rsds"]["reduce"]["values"])
+    print(f"runtime (c): worker 1 SIGKILLed (exit {res['c']['exitcode']}) "
+          f"mid-graph on rsds selector p2p; reduce values equal",
+          flush=True)
+    out["c"] = res["c"]
+    part("a, b, c and the pools' starts")
+
+    join_closing()      # (d) measures with no other pool busy
+
+    # (d) zero workers at the published size, one pool at a time
+    zero = {}
+    merges = {n: benchgraphs.merge(n) for n in RT_ZERO_SIZES}
+    for (server, batching), c in zero_pools.items():
+        label = f"{server} zero {'batched' if batching else 'per-frame'}"
+        waits = RT_PER_FRAME_WAIT_S if (server, batching) == \
+            ("dask", False) else {}
+        done = True
+        for n in RT_ZERO_SIZES:
+            # a pool still busy with an unfinished graph takes no more
+            row = (_rt_zero_row(c, merges[n], waits.get(n, 300.0))
+                   if done else
+                   {"finished": False, "not_run": "pool still busy"})
+            done = row["finished"]
+            zero[f"{label} merge-{n}"] = row
+            print(f"runtime (d): {label} merge({n}): " + json.dumps(row),
+                  flush=True)
+        retire(c, force=not done)   # an unfinished graph is abandoned
+    for n in RT_ZERO_SIZES:
+        d = zero[f"dask zero per-frame merge-{n}"]
+        r = zero[f"rsds zero per-frame merge-{n}"]
+        assert r["finished"] and zero[f"dask zero batched merge-{n}"][
+            "frames_coalesced"] > 0, n
+        if d["finished"]:
+            assert d["wire_frames_a_task"] >= 2.0 and \
+                r["wire_frames_a_task"] < d["wire_frames_a_task"], (n, d, r)
+        elif "tasks_done" in d:
+            # unfinished: a done task has moved a compute and a finished
+            # frame of its own, and the Dask wire has already moved more
+            # frames than the static wire did for the whole graph
+            assert d["wire_frames_so_far"] >= 2 * d["tasks_done"] and \
+                d["wire_frames_so_far"] > r["wire_frames_a_task"] * \
+                merges[n].n_tasks, (n, d, r)
+    out["d"] = zero
+    join_closing()
+    part("d")
+
+    # (e) the simulator (virtual time; server cost measured)
+    ratios = {}
+    for g in benchgraphs.suite(scale=RT_SIM_SCALE):
+        ws = simulate(g, server="dask", scheduler="ws", n_workers=24)
+        rnd = simulate(g, server="dask", scheduler="random", n_workers=24)
+        assert not ws.timed_out and not rnd.timed_out, g.name
+        assert ws.n_tasks == rnd.n_tasks == g.n_tasks
+        ratios[g.name] = ws.makespan / rnd.makespan
+    g = benchgraphs.merge(8000)
+    sims = {s: simulate(g, server=s, scheduler="ws", n_workers=168,
+                        zero_worker=True) for s in ("dask", "rsds")}
+    assert all(not r.timed_out for r in sims.values())
+    out["e"] = {
+        "ws_over_random_makespan": ratios,
+        "ws_over_random_geomean": float(np.exp(np.mean(np.log(
+            list(ratios.values()))))),
+        "merge-8000 at 168 workers rsds_over_dask_makespan":
+            sims["rsds"].makespan / sims["dask"].makespan,
+        "aot_us": {s: r.aot * 1e6 for s, r in sims.items()}}
+    print("runtime (e): " + json.dumps(out["e"]), flush=True)
+    part("e")
+    out["pool_start_s"] = starts
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"runtime: pools started in {json.dumps(starts)} s; parts "
+          f"{json.dumps(parts)} s; the phase took {out['seconds']:.1f} s of "
+          f"its {RT_BUDGET_S:.0f} s budget", flush=True)
+    return out
 
 
 def main(argv=()) -> int:
@@ -3852,6 +4253,10 @@ def main(argv=()) -> int:
     ap.add_argument("--xlstm-depth", action="store_true",
                     help="only train xlstm-350m at one and three repeats "
                          "and print each depth's loss fall (xlstm_depth)")
+    ap.add_argument("--process-runtime", action="store_true",
+                    help="only build the kernels (timed by library) and "
+                         "run the task runtime's phase on the card's host "
+                         "(run_process_runtime)")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch --rmsnorm-times, "
                          "--ssd-times, --flash-bwd-times or "
@@ -3892,6 +4297,17 @@ def main(argv=()) -> int:
     if args.xlstm_depth:
         xlstm_depth(_card())
         return 0
+    if args.process_runtime:
+        from repro_torch.kernels import build
+        print(_card())
+        t0 = time.perf_counter()
+        build.build_all()
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s; by library: "
+              + json.dumps({k: round(v, 1)
+                            for k, v in build.build_seconds.items()}))
+        print("process runtime:", json.dumps(run_process_runtime(),
+                                             default=str))
+        return 0
     # cuBLAS reads this when it starts; the training slice's restart check
     # runs with deterministic algorithms, which require it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3911,7 +4327,9 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(logs) or 'cached'})")
+          f"({', '.join(logs) or 'cached'}); by library: "
+          + json.dumps({k: round(v, 1)
+                        for k, v in build.build_seconds.items()}))
     # (kernel, a tag of its instance): bf16 instances, and fp32 ones where
     # the tag starts with "If" (a template whose first argument is float)
     shown = [(k, t) for k in ("flash_fwd_kernel_sm90",
@@ -3965,6 +4383,11 @@ def main(argv=()) -> int:
         seconds[what] = now - mark
         mark = now
         print(f"phase {what}: {seconds[what]:.1f} s", flush=True)
+
+    # 1b. the paper's runtime on the card's host, beside the CUDA context
+    runtime_numbers = run_process_runtime()
+    print("process runtime:", json.dumps(runtime_numbers, default=str))
+    done("1b runtime")
 
     # 2. kernels against their plain versions
     # phase 4's inputs wait on the host: the slices of phase 3 need the

@@ -1,25 +1,27 @@
 """Persistent Cluster/Client futures API (the paper's drop-in-server shape).
 
+A copy of :mod:`repro.core.client` for the port.
+
 The paper's RSDS is a *server* that Dask clients connect to and feed work
 incrementally; a one-shot ``run_graph`` cannot express that (every run
 pays worker startup, and multi-graph scenarios — training loops, serving —
 restart the pool between graphs).  This module is the missing surface:
 
-* :class:`Cluster` — owns a persistent server loop + worker pool on the
-  wall-clock thread engine (``runtime="thread"``; ``"process"`` raises
-  ``NotImplementedError``: the port has no process runtime yet).
-  Workers start once; any number of graph epochs are submitted against
-  the warm pool.
+* :class:`Cluster` — owns a persistent server loop + worker pool for
+  either wall-clock engine (``runtime="thread"|"process"``).  Workers
+  start once; any number of graph epochs are submitted against the warm
+  pool.
 * :class:`Client` — ``submit(fn, *args)`` / ``map`` / ``submit_graph`` /
   ``submit_update`` (incremental :class:`repro_torch.core.graph.GraphBuilder`
   chunks), plus ``gather`` and ``release``.
 * :class:`Future` — a handle on one task's result with explicit key
   lifetime: ``result()`` blocks on the owning epoch, ``release()`` drops
-  the client hold so the reactor's refcount GC can reclaim the value.
+  the client hold so the reactor's refcount GC can reclaim the value
+  (and, on the process runtime, ``release`` frames purge worker caches).
 
 ``run_graph`` stays as a thin back-compat wrapper::
 
-    with Cluster(server="rsds", runtime="thread", n_workers=8) as c:
+    with Cluster(server="rsds", runtime="process", n_workers=8) as c:
         futs = c.client.submit_graph(graph)     # epoch 1
         print(futs.result())                    # {tid: value}
         more = c.client.submit_graph(graph2)    # epoch 2, warm pool
@@ -31,7 +33,7 @@ import time
 from typing import Any, Callable, Iterable, Sequence
 
 from repro_torch.core.graph import GraphBuilder, Task, TaskGraph
-from repro_torch.core.runtime import RunResult, ThreadRuntime
+from repro_torch.core.runtime import ProcessRuntime, RunResult, ThreadRuntime
 
 
 class ClusterClosed(RuntimeError):
@@ -84,15 +86,34 @@ class Future:
         # rows are gone (the _released set is pruned as the base moves)
         if self.tid in c._released or self.tid < rt.g.tid_base:
             raise ReleasedKeyError(self.key)
+        t0 = time.perf_counter()
         e = rt.epoch(self.eid)
         if not e.done_evt.wait(timeout):
             raise TimeoutError(
                 f"future {self.key!r} not done within {timeout}s")
         if e.error is not None:
             raise e.error
-        if self.tid < rt.g.tid_base:    # released elsewhere, compacted
-            raise ReleasedKeyError(self.key)
-        # thread workers put every result into the server's own store
+        try:
+            is_fn_task = c.graph.task(self.tid).fn is not None
+        except IndexError:      # released elsewhere + compacted mid-read
+            raise ReleasedKeyError(self.key) from None
+        if self.tid not in rt.results and is_fn_task:
+            # pass the caller's remaining budget through; None lets the
+            # runtime wait out a busy holder (its own timeout bounds it)
+            left = (max(timeout - (time.perf_counter() - t0), 0.1)
+                    if timeout is not None else None)
+            if not rt.fetch([self.tid], timeout=left) \
+                    and self.tid not in rt.results:
+                if self.tid in getattr(rt, "_gather_failed", ()):
+                    # every holder answered absent or died: fail fast
+                    # instead of silently returning None
+                    raise KeyError(
+                        f"result for {self.key!r} (tid {self.tid}) is "
+                        "unavailable: no live worker holds it")
+                # fetch deadline expired without a definitive absent —
+                # a busy holder, not a missing value; a retry may succeed
+                raise TimeoutError(
+                    f"fetch of {self.key!r} (tid {self.tid}) timed out")
         return rt.results.get(self.tid)
 
     def release(self) -> None:
@@ -137,13 +158,51 @@ class GraphFutures:
         return self._cluster.runtime.wait_epoch(self.eid, timeout)
 
     def result(self, timeout: float | None = None) -> dict[int, Any]:
+        t0 = time.perf_counter()
         if not self.wait(timeout):
             raise TimeoutError(
                 f"graph epoch {self.eid} not done within {timeout}s")
-        e = self._cluster.runtime.epoch(self.eid)
+        rt = self._cluster.runtime
+        e = rt.epoch(self.eid)
         if e.error is not None:
             raise e.error
+        left = (max(timeout - (time.perf_counter() - t0), 0.1)
+                if timeout is not None else None)
+        if not self.fetch_missing(left):
+            failed = getattr(rt, "_gather_failed", set())
+            if any(self._base + i in failed for i in range(self._n)):
+                # a silently partial results dict is the failure mode
+                # this data plane is supposed to eliminate — surface it
+                raise KeyError(
+                    f"graph epoch {self.eid}: some results are "
+                    "unavailable (no live worker holds them)")
+            raise TimeoutError(
+                f"graph epoch {self.eid}: result gather timed out")
         return self.raw_results()
+
+    def fetch_missing(self, timeout: float | None = None) -> bool:
+        """Pull fn-task values still living only in worker caches into
+        the server-side store (p2p data plane: results no longer ride
+        finished frames; they are gathered when the client reads them).
+        Returns False when some value could not be gathered."""
+        c = self._cluster
+        rt = c.runtime
+
+        def _needs_fetch(t: int) -> bool:
+            try:
+                return c.graph.task(t).fn is not None
+            except IndexError:
+                return False    # compacted mid-check: long-released
+        need = [self._base + i for i in range(self._n)
+                if self._base + i >= rt.g.tid_base
+                and self._base + i not in rt.results
+                and self._base + i not in c._released
+                and _needs_fetch(self._base + i)]
+        if not need:
+            return True
+        # timeout=None lets the runtime wait out busy holders (bounded
+        # by its own configured timeout)
+        return rt.fetch(need, timeout=timeout)
 
     def raw_results(self) -> dict[int, Any]:
         """{original tid: value} for every task that produced a value
@@ -271,8 +330,7 @@ class Client:
 
 
 class Cluster:
-    """Persistent server loop + worker pool on the wall-clock thread
-    engine.
+    """Persistent server loop + worker pool for either wall-clock engine.
 
     The pool starts on construction and survives any number of graph
     epochs — back-to-back graphs reuse warm workers, so per-run startup
@@ -315,8 +373,12 @@ class Cluster:
             self.runtime = ThreadRuntime(self.graph, self.reactor,
                                          n_workers, **kw)
         elif runtime == "process":
-            raise NotImplementedError(
-                "Cluster(runtime='process'): not ported yet")
+            self.reactor = cls(self.graph, sched, n_workers, seed=seed,
+                               simulate_codec=False)
+            self.runtime = ProcessRuntime(self.graph, self.reactor,
+                                          n_workers,
+                                          driver=driver or "selector",
+                                          **kw)
         else:
             raise ValueError(
                 f"unknown runtime {runtime!r} (want thread|process)")
@@ -391,6 +453,10 @@ class Cluster:
         e = rt.epoch(gf.eid)
         if e.done_evt.is_set() and not timed_out and e.error is None:
             makespan = e.makespan
+            # p2p: pull values out of worker caches; a failed gather
+            # must not yield a silently partial results dict — the
+            # legacy RunResult surface reports it as a timed-out run
+            timed_out = not gf.fetch_missing()
         else:
             makespan = time.perf_counter() - (e.t_submit or e.t_ingest)
         stats = rt.run_stats()     # reactor + driver wire/codec meters

@@ -1,9 +1,12 @@
 """Build and load the CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
-with a plain C interface and loaded with :mod:`ctypes`.  Nothing is built
-when a module is imported: :func:`load` builds on the first CUDA call of a
-kernel, and :func:`build_all` starts one ``nvcc`` per source in parallel.
+with a plain C interface and loaded with :mod:`ctypes`.  A library that
+:data:`UNITS` lists is built from several translation units instead,
+compiled apart and linked into the one library.  Nothing is built when a
+module is imported: :func:`load` builds on the first CUDA call of a
+kernel, and :func:`build_all` starts one ``nvcc`` per translation unit,
+all at once.
 Libraries go to ``build/kernels/`` under the checkout, named by a hash of
 the sources and flags, so a changed source is rebuilt and an unchanged one
 is reused.
@@ -17,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -29,6 +33,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+# head dims the attention kernels are instantiated for (csrc/*.cu
+# templates): the flash forward and backward, and decode
+HEAD_DIMS = (32, 64, 80, 128, 256)
+
+# libraries built from several translation units: name -> [(source in
+# csrc/, its macros)].  Decode's 68 instances took one nvcc ~73 s; one
+# unit for each (dtype, head dim) lets them build beside the others.
+UNITS = {"decode_attention": [("decode_attention.cu", {})] + [
+    ("decode_attention_hd.cu", {"DECODE_DTYPE": str(code),
+                                "DECODE_HD": str(hd)})
+    for code in DTYPE_CODES.values() for hd in HEAD_DIMS]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library (one per csrc/<name>.cu): symbol -> argtypes
@@ -78,6 +94,8 @@ SIGNATURES = {
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# seconds from build_all's start until each library it built was in place
+build_seconds: dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -103,43 +121,85 @@ def _defines_header(name: str) -> str:
     return "".join(f"#define {k} {v}\n" for k, v in defines(name).items())
 
 
+def units(name: str) -> list[tuple[Path, dict[str, str]]]:
+    """The translation units of library ``name``, each a source and its
+    macros: ``csrc/<name>.cu`` alone unless :data:`UNITS` lists more."""
+    return [(CSRC / src, dict(macros))
+            for src, macros in UNITS.get(name, [(f"{name}.cu", {})])]
+
+
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` is built for the present
     sources, flags and macros."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(_defines_header(name).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cuh")):
         h.update(src.read_bytes())
+    for src, macros in units(name):
+        h.update(src.read_bytes())
+        if macros:
+            h.update(repr(sorted(macros.items())).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
+def _start(name: str) -> tuple[Path, list[tuple[subprocess.Popen, Path]]]:
+    """Start the ``nvcc`` of each translation unit of library ``name``;
+    returns where the library goes and each process with its output (the
+    library itself for a one-unit library, else an object file)."""
     out = library_path(name)
     if out.exists():
-        return out, None
+        return out, []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS]
+    flags = list(NVCC_FLAGS)
     header = _defines_header(name)
     if header:
         path = out.with_suffix(".h")
         path.write_text(header)
-        cmd += ["--pre-include", str(path)]
-    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return out, proc
+        flags += ["--pre-include", str(path)]
+    todo = units(name)
+    if len(todo) > 1:       # compile apart: objects, linked in _finish
+        flags[flags.index("-shared")] = "-c"
+    procs = []
+    for i, (src, macros) in enumerate(todo):
+        tmp = out.with_suffix(f".{i}.{os.getpid()}.o" if len(todo) > 1
+                              else f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *flags, *(f"-D{k}={v}" for k, v in macros.items()),
+               "-o", str(tmp), str(src)]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp))
+    return out, procs
 
 
-def _finish(name: str, out: Path, proc: subprocess.Popen | None) -> str:
-    """Wait for one build; move the library into place; return the log."""
-    if proc is None:
+def _finish(name: str, out: Path,
+            procs: list[tuple[subprocess.Popen, Path]]) -> str:
+    """Wait for one library's builds; link its objects where it has
+    several; move the library into place; return the log."""
+    if not procs:
         return ""
-    log, _ = proc.communicate()
+    logs, failed = [], []
+    for (proc, _), (src, macros) in zip(procs, units(name)):
+        log, _ = proc.communicate()
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src.name} {macros or ''}:"
+                          f"\n{log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    if len(procs) > 1:
+        link = None if failed else subprocess.run(
+            [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *(str(obj) for _, obj in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _, obj in procs:
+            obj.unlink(missing_ok=True)
+        if link is not None and link.returncode != 0:
+            raise RuntimeError(f"linking {name} failed:\n{link.stdout}")
+        if link is not None:
+            logs.append(link.stdout)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
+    log = "".join(logs)
     out.with_suffix(".log").write_text(log)
     return log
 
@@ -155,15 +215,28 @@ def _open(name: str, path: Path) -> ctypes.CDLL:
 
 def build_all() -> dict[str, str]:
     """Compile every kernel library that is not built yet, one ``nvcc`` per
-    source, all at once; load them.  Returns each build's compiler log."""
+    translation unit, all at once; load them.  Returns each build's
+    compiler log; :data:`build_seconds` gets the seconds from the start
+    until each library was in place."""
     with _lock:
+        t0 = time.perf_counter()
         started = {n: _start(n) for n in SIGNATURES if n not in _loaded}
         logs, errors = {}, []
-        for n, sp in started.items():  # wait for every build before raising
+
+        def finish(n: str) -> None:
             try:
-                logs[n] = _finish(n, *sp)
+                logs[n] = _finish(n, *started[n])
             except RuntimeError as e:
                 errors.append(str(e))
+            build_seconds[n] = time.perf_counter() - t0
+
+        # a thread a library, so each one's seconds end when it does; all
+        # are waited for before raising
+        waits = [threading.Thread(target=finish, args=(n,)) for n in started]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         if errors:
             raise RuntimeError("\n".join(errors))
         for n, (path, _) in started.items():
@@ -191,10 +264,6 @@ def entry(name: str, symbol: str | None = None):
         (symbol,) = SIGNATURES[name]
     return getattr(load(name), symbol)
 
-
-# head dims the attention kernels are instantiated for (csrc/*.cu
-# templates): the flash forward and backward, and decode
-HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
 def check_operand(kernel: str, arg: str, t, ndim: int, dtype=None, *,

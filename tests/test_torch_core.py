@@ -165,10 +165,19 @@ def test_client_surface_matches_reference(server):
 
 
 def test_process_runtime_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcore.Cluster(runtime="process", n_workers=1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcore.run_graph(_graph(tcore, "chain"), server="asyncio")
+    """The process runtime was the part of ``repro.core`` this copy
+    lacked; it is copied now, so ``Cluster(runtime="process")`` and the
+    ``server="asyncio"`` shorthand run (forked here: the graph's task
+    functions live in this module, which a spawned worker would import
+    with torch) and give the reference's results."""
+    with tcore.Cluster(runtime="process", n_workers=1,
+                       start_method="fork", timeout=60.0) as c:
+        assert c.client.submit(np.add, 2.0, 3.0).result(30.0) == 5.0
+    want = jcore.run_graph(_graph(jcore, "chain"), n_workers=2, timeout=60.0)
+    got = tcore.run_graph(_graph(tcore, "chain"), server="asyncio",
+                          n_workers=2, start_method="fork", timeout=60.0)
+    assert not got.timed_out and got.stats["server_driver"] == "asyncio"
+    _same(got.results, want.results)
 
 
 @pytest.mark.parametrize("server", SERVERS)

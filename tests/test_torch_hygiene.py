@@ -2,6 +2,10 @@
 its entry points run on the card or raise, never on the CPU by default."""
 import ast
 import importlib.util
+import os
+import subprocess
+import sys
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -36,7 +40,8 @@ def test_port_has_sources():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "flash_attention.cu", "flash_attention_bwd.cu",
-        "decode_attention.cu", "mamba_chunk_scan.cu",
+        "decode_attention.cu", "decode_attention_hd.cu",
+        "mamba_chunk_scan.cu",
         "mamba_chunk_scan_bwd.cu", "rmsnorm.cu"}
 
 
@@ -69,3 +74,43 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_worker_import_chain_has_no_torch():
+    """A spawned worker of the process runtime imports the task runtime to
+    run ``_worker_main``; that chain pulls in no torch (and nothing of
+    JAX): read from a fresh interpreter's ``sys.modules``."""
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.core.runtime import _worker_main
+        import repro_torch.core, repro_torch.core.benchgraphs
+        import repro_torch.ft.faults
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "jax", "repro"))
+        print(",".join(bad) or "clean")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_chip_smoke_as_a_spawned_worker_imports_no_torch():
+    """A worker of chip_smoke's process runtime imports the script as
+    ``__mp_main__``: its top level then imports no torch and does no work
+    beyond imports and constants."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        ns = runpy.run_path({str(ROOT / "chip_smoke.py")!r},
+                            run_name="__mp_main__")
+        assert "main" in ns and "rt_torch_state" in ns
+        print(ns["rt_torch_state"](),
+              sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "jax")) or "clean")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["absent", "clean"]
