@@ -29,7 +29,8 @@ a time on its plain version (``logits_gap``).  The eighth only trains xlstm-350m
 slice does at its published widths with one and with all three of its
 (7 mLSTM + 1 sLSTM) repeats, and prints how far each depth's loss falls
 (``xlstm_depth``).  The ninth only builds the kernels, timed by library,
-and runs phase 1b (``run_process_runtime``).  The first form:
+and runs phase 1b (``run_process_runtime``), its pools' event streams
+checked live as in phase 1c (c).  The first form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
@@ -68,6 +69,31 @@ and runs phase 1b (``run_process_runtime``).  The first form:
    its first task's end), each part's seconds and the phase's are printed
    beside its budget (``RT_BUDGET_S``); pools close on threads of their
    own while the next runs, and the phase ends when all have closed.
+1c. The invariant checker (``repro_torch.analysis``), held to the repo's
+   ``docs/`` as the JAX package's copy is.  (a) The static rules RA1-RA8
+   over this checkout (``Conformance.static_and_explore``): 0 findings, and the
+   suppressed count equal to the allowlist's matches.  (b) The explorer:
+   ``explore_sim`` on the port's simulator under both servers at
+   tests/test_protocol.py's parameters (``merge(12)``, 3 workers, 20
+   distinct interleavings) and once with a worker failure
+   (``EXPLORE_SIM``), then ``explore_inproc`` on the thread runtime, 3
+   schedules a server; no run may violate the protocol.  (c) Live sinks
+   (``Conformance.attach``: a ``ConformanceSink`` on an event bus, the
+   stream whole from ``stream-open``, fed in order by a thread of its own
+   off the publishing thread, ``_TimedSink``): every pool of phase 1b's (b)
+   and (c) (both servers, the selector and asyncio drivers, p2p on and
+   off, the SIGKILLed worker), llama3.2-1b's engine in phase 3, and each
+   coordinator's step with executor 2 failed (its pool with events on; one
+   ``worker-lost``); none on (d)'s zero-worker pools, whose server time
+   it would change.  Each stream prints its events checked and findings
+   where its run ends; a finding fails the run.  (d) The llama engine's
+   stream, written as JSONL, through ``python -m repro_torch.analysis
+   --trace`` in a subprocess: exit 0 (``Conformance.offline``).  The llama
+   engine's runtime cost a call is measured again without and with the
+   sink, in turns (``sink_cost``), beside the runs' spread.  Phase 4
+   ends with the summary: every stream again, and the phase's seconds,
+   (a) + (b) + (d) + every sink's time, beside its budget
+   (``CONFORMANCE_BUDGET_S``).
 2. Each CUDA kernel against its plain PyTorch version on the card, on the
    JAX suite's sweep shapes and the slices' shapes: flash and decode
    attention at head dims 32, 64, 80, 128 and 256 and at G = 7 and 6
@@ -261,6 +287,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1520,16 +1547,21 @@ def trace_split(cluster, kind_of, makespan, what, card):
     print(json.dumps({"trace": out}))
 
 
-def serve(cfg, params, prompts, trace=False, card=None):
+def serve(cfg, params, prompts, trace=False, card=None, conformance=None):
     """The engine run of one slice, through the engine's warm Cluster with
     events on, with every launch counter set to 0 just before it and read
     just after; checks each kernel's count, one epoch a prefill or decode
     step, no spill, and each request's enter, admit and exit events.  With
-    ``trace``, the runtime's trace of the run (``trace_split``).  An MoE
+    ``trace``, the runtime's trace of the run (``trace_split``).  With
+    ``conformance`` (a ``Conformance``), the engine's event stream is
+    checked live and then offline (phase 1c (c), (d)).  An MoE
     model's calls each report their ``moe_dropped`` (``_moe_dropped``)."""
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
                         events=True, tracing=trace, device="cuda")
+    label = f"{cfg.name} engine"
+    if conformance:
+        conformance.attach(eng.events, label)
     calls = _time_calls(eng)
     dropped = []
     _reset_counters()
@@ -1545,6 +1577,9 @@ def serve(cfg, params, prompts, trace=False, card=None):
         wall = time.perf_counter() - t0
         eng.stop()
     launches = {n: fn.launches for n, fn in _counters().items()}
+    if conformance:
+        conformance.check(label)
+        conformance.offline(eng.events, label)
     runtime = runtime_costs(eng, calls)
     kinds = [c[0] for c in calls]
     counts = {k: eng.events.counts[k] for k in (
@@ -1696,6 +1731,66 @@ def serving_memory(cfg, params, prompts, flood=FLOOD_REQUESTS):
     if after != first or rt.g.tid_base != 0:
         raise AssertionError(f"{cfg.name}: device memory not flat across "
                              f"requests (or the graph compacted): {out}")
+    return out
+
+
+SINK_COST_RUNS = (False, True, True, False)  # sink off / on, in turns
+
+
+def engine_run(cfg, params, prompts, conformance=None, label=None):
+    """``serve``'s requests on a fresh engine (events on, no trace, no
+    counters): its ``runtime_costs`` and tokens/s.  With ``conformance``,
+    its event stream is checked live under ``label``."""
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                        events=True, device="cuda")
+    if conformance:
+        conformance.attach(eng.events, label)
+    calls = _time_calls(eng)
+    t0 = time.perf_counter()
+    eng.start()
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS,
+                       tenant=f"tenant-{i % 2}")
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        if not r.done.wait(600):
+            raise AssertionError(f"request {r.rid} did not finish")
+    wall = time.perf_counter() - t0
+    eng.stop()
+    if conformance:
+        conformance.check(label)
+    return runtime_costs(eng, calls), eng.n_generated / wall
+
+
+def sink_cost(cfg, params, prompts, card, conformance):
+    """The runtime's cost a call (``runtime_costs``) of ``serve``'s engine
+    run without and with a conformance sink on its bus, in turns
+    (``SINK_COST_RUNS``, ``engine_run``): each run's median by kind of
+    call, the spread between the runs of one setting and the change of
+    the sink's mean over the mean without it.  Printed, not checked: a
+    host-clock comparison."""
+    runs = []
+    for i, on in enumerate(SINK_COST_RUNS):
+        rc, _ = engine_run(cfg, params, prompts, on and conformance,
+                           f"{cfg.name} engine, sink-cost run {i + 1}")
+        runs.append({"sink": on, **{k: rc[k]["runtime_ms_median"]
+                                    for k in ("decode step", "prefill")}})
+    out = {"runs": runs, "card": card}
+    for kind in ("decode step", "prefill"):
+        by = {on: [r[kind] for r in runs if r["sink"] == on]
+              for on in (False, True)}
+        spread = max(max(v) - min(v) for v in by.values())
+        change = float(np.mean(by[True]) - np.mean(by[False]))
+        out[kind] = {"without_ms": by[False], "with_ms": by[True],
+                     "change_ms": change, "spread_ms": spread,
+                     "within_spread": abs(change) <= spread}
+        print(f"{cfg.name} runtime cost a call, {kind} median without / "
+              f"with the conformance sink ({card}): "
+              f"{', '.join(f'{v:.4f}' for v in by[False])} / "
+              f"{', '.join(f'{v:.4f}' for v in by[True])} ms; change "
+              f"{change:+.4f} ms, run-to-run spread {spread:.4f} ms",
+              flush=True)
+    print(json.dumps({"sink_cost": out}))
     return out
 
 
@@ -2231,9 +2326,9 @@ def flash_bwd_times(root):
 
 def serving_runtime(root):
     """The llama3.2-1b serving run of ``serve`` (its 16 requests on a fresh
-    engine, events on) through the engine of the checkout at ``root``
-    (already on ``sys.path``); prints its ``runtime_costs`` and tokens/s
-    as one JSON line, with the card."""
+    engine, events on, ``engine_run``) through the engine of the checkout
+    at ``root`` (already on ``sys.path``); prints its ``runtime_costs``
+    and tokens/s as one JSON line, with the card."""
     from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
     from repro_torch.serve import engine as engine_lib
@@ -2245,21 +2340,8 @@ def serving_runtime(root):
     with torch.inference_mode():
         params = model_lib.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-    eng = engine_lib.ServingEngine(cfg, params, max_batch=MAX_BATCH,
-                                   max_len=MAX_LEN, events=True,
-                                   device="cuda")
-    calls = _time_calls(eng)
-    t0 = time.perf_counter()
-    eng.start()
-    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS)
-            for p in make_prompts(cfg)]
-    for r in reqs:
-        if not r.done.wait(600):
-            raise AssertionError(f"request {r.rid} did not finish")
-    wall = time.perf_counter() - t0
-    eng.stop()
-    print(json.dumps({"serving_runtime": runtime_costs(eng, calls),
-                      "tokens_per_s": eng.n_generated / wall,
+    costs, tokens_per_s = engine_run(cfg, params, make_prompts(cfg))
+    print(json.dumps({"serving_runtime": costs, "tokens_per_s": tokens_per_s,
                       "root": str(root), "card": card}), flush=True)
 
 
@@ -2463,14 +2545,17 @@ def moe_parity(cfg, params, absorbed_checked):
     return out
 
 
-def run_slice(arch, widths, layers, card):
+def run_slice(arch, widths, layers, card, conformance=None):
     """Phase 3 for one slice (its depth cut to ``layers`` where that is not
     None); returns its engine-run launch counts, and its rmsnorm launches
     by call and width ("rmsnorm_fwd:<call>:<d>": (norms per call,
     launches)).  An MoE slice holds a one-slot engine to a one-row
     reference (``greedy_reference(batch=1)``), and reports how many of the
     8-slot run's requests equal their one-slot generation, beside its
-    dropped shares: batchmates compete for the experts' capacity."""
+    dropped shares: batchmates compete for the experts' capacity.  With
+    ``conformance``, llama3.2-1b's engine stream is checked (``serve``) and
+    its runtime cost a call measured without and with the sink
+    (``sink_cost``)."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_map
     moe = arch in MOE_ARCHS
@@ -2508,7 +2593,11 @@ def run_slice(arch, widths, layers, card):
             want = {i: greedy_reference(cfg, params, prompts[i])
                     for i in picks}
     reqs, launches, rms_calls, stats = serve(
-        cfg, params, prompts, trace=arch == TRAIN_ARCH, card=card)
+        cfg, params, prompts, trace=arch == TRAIN_ARCH, card=card,
+        conformance=conformance if arch == TRAIN_ARCH else None)
+    if conformance and arch == TRAIN_ARCH:
+        stats["sink_cost"] = sink_cost(cfg, params, prompts, card,
+                                       conformance)
     if moe:
         same = [i for i, r in enumerate(reqs) if r.out_tokens == solo[i]]
         stats["equal_to_solo"] = len(same)
@@ -3660,18 +3749,20 @@ def run_optimizers(card, adamw):
                                      "card": card}}))
 
 
-def _coordinator(cfg, n_executors, timed=None, started=None, trace=False):
+def _coordinator(cfg, n_executors, timed=None, started=None, trace=False,
+                 events=None):
     """A ``MicrobatchCoordinator`` of the phase (params from seed 0), with
     the training slice's AdamW settings; ``timed`` collects the wall time
     of each microbatch's gradient function up to the loss's read-back
     (which the task does next), and ``started`` the start of each; with
     ``trace``, its pool runs with events and ``tracing`` on from its
-    first task."""
+    first task; ``events``, an event bus for its pool."""
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.trainer import MicrobatchCoordinator
     mc = MicrobatchCoordinator(cfg, n_executors=n_executors,
                                n_microbatches=COORD_MICRO,
-                               scheduler="rsds_ws", events=trace or None,
+                               scheduler="rsds_ws",
+                               events=events or trace or None,
                                tracing=trace, device="cuda")
     mc.opt = make_optimizer("adamw", **TRAIN_OPT)
     mc.opt_state = mc.opt.init(mc.params)
@@ -3716,7 +3807,7 @@ def _first_difference(names, got, want):
     return None
 
 
-def run_coordinator(card, arch=TRAIN_ARCH):
+def run_coordinator(card, arch=TRAIN_ARCH, conformance=None):
     """A coordinator slice: ``arch`` at full width trained through
     ``MicrobatchCoordinator`` (global batch 4 x 2048 in 4 microbatches of
     1 x 2048, 4 executors, rsds_ws, 2 steps, deterministic algorithms).
@@ -3728,7 +3819,8 @@ def run_coordinator(card, arch=TRAIN_ARCH):
     bytes are equal after each step; the 4-executor run's trace
     (``trace_split``, tracing on from its first task, 3 steps).  Returns
     its launch counts and rmsnorm launches as ``run_training`` does (the
-    call: a microbatch)."""
+    call: a microbatch).  With ``conformance``, the failed step's pool
+    publishes events, checked live (phase 1c (c)): one ``worker-lost``."""
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_leaves, tree_map, tree_paths
@@ -3795,10 +3887,16 @@ def run_coordinator(card, arch=TRAIN_ARCH):
     others = {}
     for n_exec, fail in ((1, None), (COORD_EXECUTORS, 2)):
         timed, started = [], []
-        mc = _coordinator(cfg, n_exec, timed, started)
+        label = f"{cfg.name} coordinator, executor {fail} failed"
+        bus = conformance.bus(label) if conformance and fail else None
+        mc = _coordinator(cfg, n_exec, timed, started, events=bus)
         t0 = time.perf_counter()
         r = mc.train_step(batch, fail_worker=fail)
         r.update(wall_s=time.perf_counter() - t0, microbatch_fn_s=timed)
+        if bus is not None:
+            conformance.check(label)
+            if bus.counts["worker-lost"] != 1:
+                raise AssertionError(f"{label}: {dict(bus.counts)}")
         others[f"{n_exec} executors, fail_worker={fail}"] = r
         if r["timed_out"] or r["loss"] != losses[0]:
             raise AssertionError(f"coordinator, {n_exec} executors, "
@@ -3993,18 +4091,21 @@ def _rt_zero_row(c, g, wait):
     return row
 
 
-def run_process_runtime(n_workers=None):
+def run_process_runtime(n_workers=None, conformance=None):
     """The paper's runtime comparison on OS-process workers started by a
     parent that holds a CUDA context: (a) spawn under CUDA, (b) parity
     with the thread runtime, (c) a SIGKILLed worker, (d) the zero-worker
-    measurement at its published size, (e) the simulator.  Returns the
-    figures it printed."""
+    measurement at its published size, (e) the simulator.  The pools of (b)
+    and (c) publish events into live sinks of ``conformance`` (a new
+    ``Conformance`` by default; phase 1c (c)).  Returns the figures it
+    printed."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core import Cluster, benchgraphs, simulate
     from repro_torch.ft.faults import kill_worker_after
 
     t_phase = time.perf_counter()
+    conformance = conformance or Conformance()
     torch.ones(1, device="cuda")
     assert torch.cuda.is_initialized(), "the parent holds no CUDA context"
     nw = n_workers or min(8, os.cpu_count() or 1)
@@ -4018,6 +4119,12 @@ def run_process_runtime(n_workers=None):
         mark[0] = now
 
     closing = []
+
+    def stream_label(key):
+        server, driver, p2p = key
+        return (f"runtime {server} {driver} {'p2p' if p2p else 'relay'}"
+                + (" with the kill" if key == ("rsds", "selector", True)
+                   else ""))
 
     def retire(c, force=False):
         """Close a pool on a thread of its own (its workers exit while the
@@ -4064,10 +4171,11 @@ def run_process_runtime(n_workers=None):
         kill on the rsds selector pool; the pool closes in the background."""
         server, driver, p2p = key
         first = key == parity_keys[0]
-        c = cluster(f"{server} {driver} {'p2p' if p2p else 'relay'}",
-                    server=server, driver=driver, p2p=p2p,
+        label = f"{server} {driver} {'p2p' if p2p else 'relay'}"
+        c = cluster(label, server=server, driver=driver, p2p=p2p,
                     simulate_durations=False,
-                    transport="pipe" if first else "socket")
+                    transport="pipe" if first else "socket",
+                    events=conformance.bus(stream_label(key)))
         res = {}
         try:
             if first:
@@ -4160,6 +4268,10 @@ def run_process_runtime(n_workers=None):
           f"mid-graph on rsds selector p2p; reduce values equal",
           flush=True)
     out["c"] = res["c"]
+    # phase 1c (c): every (b) and (c) pool's event stream, checked live
+    out["conformance"] = {stream_label(key):
+                          conformance.check(stream_label(key))
+                          for key in parity_keys}
     part("a, b, c and the pools' starts")
 
     join_closing()      # (d) measures with no other pool busy
@@ -4229,6 +4341,217 @@ def run_process_runtime(n_workers=None):
           f"{json.dumps(parts)} s; the phase took {out['seconds']:.1f} s of "
           f"its {RT_BUDGET_S:.0f} s budget", flush=True)
     return out
+
+
+# phase 1c: the invariant checker (repro_torch.analysis) on the card's host
+CONFORMANCE_BUDGET_S = 20.0    # (a), (b), (d) and every live sink's time
+CONFORMANCE_DRAIN_S = 0.05     # a live sink feeds its checker this often
+# (b): the explorer at tests/test_protocol.py's parameters (merge(12), 3
+# workers), both servers, and its failure-injection run
+EXPLORE_SIM = [("rsds", dict(n_schedules=20, seed=0, width=3, depth=2)),
+               ("dask", dict(n_schedules=20, seed=0, width=3, depth=2)),
+               ("dask", dict(n_schedules=8, seed=1, width=2, depth=1,
+                             failures=((0.002, 0),)))]
+EXPLORE_INPROC = 3             # schedules of the thread runtime
+TRACE_DIR = ROOT / "build" / "chip_smoke_trace"   # (d)'s JSONL
+class _TimedSink:
+    """``repro_torch.analysis.trace.ConformanceSink`` on one event bus,
+    off the publishing thread: the bus calls its sinks on the thread that
+    publishes (the server loop's, under the bus's lock), where the checker
+    added ~16 us an event to the runtime's cost a call on the card's host
+    (PERF.md), so this sink only queues the event, and a thread of its own
+    feeds the checker in order every ``CONFORMANCE_DRAIN_S``.  ``seconds``
+    is the checker's time; ``close`` (the bus's, when its Cluster closes)
+    stops the thread after a last drain."""
+
+    def __init__(self, label):
+        from repro_torch.analysis.trace import ConformanceSink
+        self.label = label
+        self.sink = ConformanceSink(path=f"<{label}>")
+        self.seconds = 0.0
+        self._queue = collections.deque()
+        self._feeding = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"conformance {label}")
+        self._thread.start()
+
+    def __call__(self, ev):
+        self._queue.append(ev)
+
+    def _run(self):
+        while not self._stop.wait(CONFORMANCE_DRAIN_S):
+            self.drain()
+
+    def drain(self):
+        with self._feeding:
+            t0 = time.perf_counter()
+            while self._queue:
+                self.sink(self._queue.popleft())
+            self.seconds += time.perf_counter() - t0
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(30.0)
+        self.drain()
+
+
+class Conformance:
+    """Phase 1c's state: the run's live streams (``streams``: label ->
+    ``_TimedSink``) and the figures of its parts (``figures``: (a), (b),
+    (d)).  ``main`` makes one and hands it to the runs whose streams it
+    checks."""
+
+    def __init__(self):
+        self.streams = {}
+        self.figures = {}
+
+    def attach(self, bus, label):
+        """Attach a live sink to ``bus`` (it replays the ring first, so the
+        stream is whole from ``stream-open``) under ``label``."""
+        if label in self.streams:
+            raise AssertionError(f"stream {label!r} attached twice")
+        self.streams[label] = _TimedSink(label)
+        bus.add_sink(self.streams[label])
+
+    def bus(self, label):
+        """A new ``EventBus`` with a live sink, for a Cluster's
+        ``events=``."""
+        from repro_torch.core.events import EventBus
+        bus = EventBus()
+        self.attach(bus, label)
+        return bus
+
+    def check(self, label):
+        """Print the stream's events checked, findings and the sink's
+        time; any finding, an internal error of the checker, a hole in the
+        stream (the checker would then run windowed, without its history
+        guards) or an empty stream fails the run."""
+        s = self.streams[label]
+        s.drain()
+        sink = s.sink
+        found = [f"{f.key} @ {f.where}: {f.message}" for f in sink.findings]
+        row = {"events": sink.n_events, "findings": len(found),
+               "strict": sink.strict,
+               "internal_errors": sink.n_internal_errors,
+               "sink_ms": 1e3 * s.seconds}
+        print(f"conformance {label}: " + json.dumps(row), flush=True)
+        if found or sink.n_internal_errors or not sink.strict \
+                or sink.n_events == 0:
+            raise AssertionError(f"{label}: {row}; {found[:20]}")
+        return row
+
+    def static_and_explore(self):
+        """(a) The static rules RA1-RA8 over this checkout: 0 findings; the
+        suppressed count equal to the allowlist's matches with suppression
+        off, and those keys the allowlist's.  (b) The explorer on the
+        port's simulator and thread runtime: no violation in any run."""
+        from repro_torch.analysis import engine
+        from repro_torch.analysis.explore import explore_inproc, explore_sim
+        from repro_torch.core import benchgraphs
+        t0 = time.perf_counter()
+        findings, n_suppressed = engine.run_rules(ROOT)
+        allow, problems = engine.load_allowlist(engine.DEFAULT_ALLOWLIST)
+        raw, _ = engine.run_rules(ROOT, allowlist=None)
+        static = {"findings": len(findings), "suppressed": n_suppressed,
+                  "allowlist_matches": sum(f.key in allow for f in raw),
+                  "allowlist_keys": len(allow),
+                  "seconds": time.perf_counter() - t0}
+        print(f"conformance (a) static rules {', '.join(engine.rule_ids())} "
+              f"over {ROOT}: " + json.dumps(static), flush=True)
+        if findings or problems or \
+                n_suppressed != static["allowlist_matches"] or \
+                {f.key for f in raw} != set(allow):
+            raise AssertionError("static rules: " + engine.format_text(
+                findings + problems, n_suppressed, engine.rule_ids()))
+        t0 = time.perf_counter()
+        g = benchgraphs.merge(12)
+        runs = []
+        for server, kw in EXPLORE_SIM:
+            r = explore_sim(server, graph=g, n_workers=3, **kw)
+            runs.append({"explorer": "sim", "server": server,
+                         "failures": bool(kw.get("failures")),
+                         "runs": r.n_runs, "distinct": r.n_distinct,
+                         "violations": [str(v) for v in r.violations]})
+        for server in ("rsds", "dask"):
+            r = explore_inproc(server, graph=g, n_schedules=EXPLORE_INPROC,
+                               seed=0, n_workers=3)
+            runs.append({"explorer": "inproc", "server": server,
+                         "runs": r.n_runs, "distinct": r.n_distinct,
+                         "violations": [str(v) for v in r.violations]})
+        explore = {"graph": g.name, "runs": runs,
+                   "seconds": time.perf_counter() - t0}
+        for r in runs:
+            print(f"conformance (b) explore_{r['explorer']} {r['server']}"
+                  f"{' with a failure' if r.get('failures') else ''}: "
+                  f"{r['runs']} runs, {r['distinct']} distinct "
+                  f"interleavings, {len(r['violations'])} violations",
+                  flush=True)
+        bad = [r for r in runs if r["violations"]]
+        if bad or runs[0]["distinct"] < EXPLORE_SIM[0][1]["n_schedules"]:
+            raise AssertionError(f"explorer: {bad or runs[0]}")
+        self.figures.update(a=static, b=explore)
+
+    def offline(self, bus, label):
+        """(d) Write the events of ``bus`` (its ring, whole) as JSONL with
+        the runtime's own writer and check the file with ``python -m
+        repro_torch.analysis --trace`` in a subprocess: exit 0, no
+        finding, as many events as the live sink checked."""
+        from repro_torch.core.events import JsonlEventLog
+        t0 = time.perf_counter()
+        sink = self.streams[label]
+        sink.drain()
+        events = bus.since(-1)
+        if bus.n_dropped or len(events) != sink.sink.n_events:
+            raise AssertionError(f"{label}: {len(events)} events in the "
+                                 f"ring, {bus.n_dropped} dropped, the sink "
+                                 f"checked {sink.sink.n_events}")
+        TRACE_DIR.mkdir(parents=True, exist_ok=True)
+        path = TRACE_DIR / "llama-engine.jsonl"
+        log = JsonlEventLog(path)
+        for ev in events:
+            log(ev)
+        log.close()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--trace",
+             str(path), "--format", "json"], capture_output=True, text=True,
+            timeout=120, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        out = {"events": len(events), "returncode": proc.returncode,
+               "seconds": time.perf_counter() - t0}
+        if proc.returncode == 0:
+            out["findings"] = json.loads(proc.stdout)["n_findings"]
+        print(f"conformance (d) {label} as JSONL ({path.stat().st_size} "
+              f"bytes) through python -m repro_torch.analysis --trace: "
+              + json.dumps(out), flush=True)
+        if proc.returncode != 0 or out["findings"] != 0:
+            raise AssertionError(f"offline trace check: {out}\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        shutil.rmtree(TRACE_DIR)
+        self.figures["d"] = out
+
+    def report(self, card):
+        """The summary: every live stream again, each closed first, and the
+        phase's time, (a) + (b) + (d) + every sink's, beside its
+        budget."""
+        for s in self.streams.values():
+            s.close()
+        rows = {label: self.check(label) for label in self.streams}
+        parts = {"a static rules": self.figures["a"]["seconds"],
+                 "b explorer": self.figures["b"]["seconds"],
+                 "c live sinks": sum(s.seconds
+                                     for s in self.streams.values()),
+                 "d offline trace": self.figures["d"]["seconds"]}
+        total = sum(parts.values())
+        print(f"phase 1c conformance ({card}): {len(rows)} live streams, "
+              f"{sum(r['events'] for r in rows.values())} events checked, "
+              f"{sum(r['findings'] for r in rows.values())} findings; parts "
+              + json.dumps({k: round(v, 3) for k, v in parts.items()})
+              + f" s; {total:.2f} s of its {CONFORMANCE_BUDGET_S:.0f} s "
+              f"budget", flush=True)
+        print(json.dumps({"conformance": {**self.figures, "streams": rows,
+                                          "part_seconds": parts,
+                                          "seconds": total, "card": card}}))
 
 
 def main(argv=()) -> int:
@@ -4385,9 +4708,15 @@ def main(argv=()) -> int:
         print(f"phase {what}: {seconds[what]:.1f} s", flush=True)
 
     # 1b. the paper's runtime on the card's host, beside the CUDA context
-    runtime_numbers = run_process_runtime()
+    conformance = Conformance()
+    runtime_numbers = run_process_runtime(conformance=conformance)
     print("process runtime:", json.dumps(runtime_numbers, default=str))
     done("1b runtime")
+
+    # 1c. the invariant checker: static rules and the explorer here, the
+    # live streams' sinks where their runs are (1b, 3), the summary last
+    conformance.static_and_explore()
+    done("1c conformance (a, b)")
 
     # 2. kernels against their plain versions
     # phase 4's inputs wait on the host: the slices of phase 3 need the
@@ -4407,21 +4736,22 @@ def main(argv=()) -> int:
             launches[arch], rms_calls[arch] = run_vision_slice(
                 arch, widths, layers, card)
         else:
-            launches[arch], rms_calls[arch] = run_slice(arch, widths,
-                                                        layers, card)
+            launches[arch], rms_calls[arch] = run_slice(
+                arch, widths, layers, card, conformance)
         done(f"3 {arch}")
         if arch == LONG_ARCH:
             launches[LONG_KEY], rms_calls[LONG_KEY] = long_context_check()
             done(f"3 {LONG_KEY}")
     launches[TRAIN_KEY], rms_calls[TRAIN_KEY], llama = run_training(card)
     done(f"3 {TRAIN_KEY}")
-    launches[COORD_KEY], rms_calls[COORD_KEY] = run_coordinator(card)
+    launches[COORD_KEY], rms_calls[COORD_KEY] = run_coordinator(
+        card, conformance=conformance)
     done(f"3 {COORD_KEY}")
     launches[ZTRAIN_KEY], rms_calls[ZTRAIN_KEY], _ = run_training(
         card, ZTRAIN_ARCH, ZTRAIN_KEY)
     done(f"3 {ZTRAIN_KEY}")
     launches[ZCOORD_KEY], rms_calls[ZCOORD_KEY] = run_coordinator(
-        card, ZTRAIN_ARCH)
+        card, ZTRAIN_ARCH, conformance)
     done(f"3 {ZCOORD_KEY}")
     for arch, key in ((XLSTM_ARCH, XTRAIN_KEY), (MUSIC_ARCH, MTRAIN_KEY)):
         launches[key], rms_calls[key], _ = run_training(card, arch, key)
@@ -4437,6 +4767,7 @@ def main(argv=()) -> int:
     # 4. numbers
     rows = kernel_numbers(inputs, launches, rms_calls, card)
     done("4 numbers")
+    conformance.report(card)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernel "
           f"build included")
     print("phase seconds:", json.dumps(seconds))

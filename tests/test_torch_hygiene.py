@@ -35,6 +35,18 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
+def test_checker_imports_no_torch():
+    """None of ``repro_torch.analysis``' modules imports torch, so
+    ``python -m repro_torch.analysis`` runs in a bare interpreter (only
+    ``explore`` reaches the runtime, ``repro_torch.core``)."""
+    files = sorted((ROOT / "src" / "repro_torch" / "analysis").glob("*.py"))
+    assert len(files) == 16
+    for path in files:
+        bad = {m for m in _imported_modules(path)
+               if m.split(".")[0] == "torch"}
+        assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
 def test_port_has_sources():
     assert len(PORT_FILES) > 10
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"

@@ -72,10 +72,12 @@ def fn_graph_want(n_leaves: int = 12) -> dict:
 
 def attach_conformance(monkeypatch) -> list:
     """Give every port ServerCore built without its own ``events=`` a bus
-    and a ``repro.analysis.trace.ConformanceSink`` (what
-    ``tests/conftest.py`` does for ``repro.core``); returns the sinks,
-    which :func:`assert_conforms` checks at teardown."""
+    with the reference's and the port's ``ConformanceSink``
+    (``repro.analysis.trace``, ``repro_torch.analysis.trace``; the first
+    is what ``tests/conftest.py`` does for ``repro.core``); returns the
+    sinks, which :func:`assert_conforms` checks at teardown."""
     from repro.analysis.trace import ConformanceSink
+    from repro_torch.analysis.trace import ConformanceSink as PortSink
     from repro_torch.core.events import EventBus
     from repro_torch.core.server import ServerCore
 
@@ -85,9 +87,10 @@ def attach_conformance(monkeypatch) -> list:
     def patched(self, *args, **kw):
         if not kw.get("events"):
             bus = EventBus()
-            sink = ConformanceSink(path="<repro_torch.core>")
-            bus.add_sink(sink)
-            sinks.append(sink)
+            for cls in (ConformanceSink, PortSink):
+                sink = cls(path="<repro_torch.core>")
+                bus.add_sink(sink)
+                sinks.append(sink)
             kw["events"] = bus
         orig_init(self, *args, **kw)
 
