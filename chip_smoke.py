@@ -10,6 +10,7 @@
     python3 chip_smoke.py --logits-gap
     python3 chip_smoke.py --xlstm-depth
     python3 chip_smoke.py --process-runtime
+    python3 chip_smoke.py --sharded
 
 The second form only times the rmsnorm kernels of the checkout at DIR
 (default: this one) at the slices' widths over a sweep of row counts
@@ -30,7 +31,8 @@ slice does at its published widths with one and with all three of its
 (7 mLSTM + 1 sLSTM) repeats, and prints how far each depth's loss falls
 (``xlstm_depth``).  The ninth only builds the kernels, timed by library,
 and runs phase 1b (``run_process_runtime``), its pools' event streams
-checked live as in phase 1c (c).  The first form:
+checked live as in phase 1c (c).  The tenth only builds the kernels and
+runs phase 5 (``run_sharded``).  The first form:
 
 1. Environment: TF32 off, the card's name and power limit, the kernels
    built with nvcc from ``src/repro_torch/kernels/csrc`` into
@@ -279,6 +281,21 @@ checked live as in phase 1c (c).  The first form:
    (asserted equal to the norms per call times the calls) and the launch
    shape (``kernels/rmsnorm.py::launch_shape``).  Then the wall seconds of
    each phase, and of each slice of phase 3.
+5. Sharding (``run_sharded``; it runs before phase 4's numbers, so that
+   their launch counts stay phase 3's), two spawned children at once
+   against its ``SHARDED_BUDGET_S``: (a) a 1-rank NCCL group and a (1, 1)
+   ``("data", "model")`` mesh on the card, and llama3.2-1b's training
+   step (4 x 2048, 16 layers, AdamW, deterministic algorithms), its
+   prefill of 4 x 512 tokens and 8 greedy decode steps, and zamba2-2.7b's
+   prefill at 12 layers, each with DTensor params (``parallel.sharding``)
+   inside ``logical_rules`` and unsharded on the same params and inputs:
+   the loss and every leaf within ``SHARDED_REL_L2``, the same greedy
+   tokens, and the same launches of every kernel wrapper in both runs,
+   so the DTensor route (``kernels/sharded.py``) reached the hand-written
+   kernels; (b) the dry-run's cells of ``SHARDED_DRYRUN`` on meta tensors
+   over the fake 256- or 512-rank mesh (device type cuda) on the card's
+   host: each record's status, per-device argument and saved bytes,
+   FLOPs, wire bytes by collective, roofline terms and bottleneck.
 
 Any failed check raises, so the script exits non-zero.  It prints no
 result, and fails, without a CUDA card or outside a checkout of the repo.
@@ -4554,6 +4571,257 @@ class Conformance:
                                           "seconds": total, "card": card}}))
 
 
+# phase 5, the sharded step: the 1-rank NCCL group's store, the dry-run
+# cells printed on the card's host, the prompt of its serving checks, its
+# budget (seconds), and the leaves' rel. L2 a sharded step may differ by
+SHARDED_STORE = ROOT / "build" / "chip_smoke_sharded_store"
+SHARDED_DRYRUN = [("llama3.2-1b", "train_4k", "single"),
+                  ("deepseek-v3-671b", "train_4k", "single"),
+                  ("zamba2-2.7b", "long_500k", "single"),
+                  ("gemma2-27b", "decode_32k", "multi")]
+SHARDED_PROMPT, SHARDED_DECODE, SHARDED_ZAMBA_LAYERS = 512, 8, 12
+SHARDED_BUDGET_S = 60.0
+SHARDED_REL_L2 = 1e-4
+
+
+def _launch_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _sharded_checks(out):
+    """Phase 5 (a), in a spawned child: a 1-rank NCCL group, a (1, 1)
+    ``("data", "model")`` mesh on the card, and the llama3.2-1b training
+    step (4 x 2048, 16 layers, AdamW), its prefill and 8 greedy decode
+    steps and zamba2-2.7b's prefill at 2 repeats, each on DTensor params
+    inside ``logical_rules`` and unsharded on the same params and inputs:
+    the differences and both runs' kernel launches go to ``out``."""
+    global torch  # a spawned child imports this script without torch
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import (ShapeCase, tree_leaves,
+                                           tree_map)
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.annotate import logical_rules, make_rules
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    t0 = time.perf_counter()
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    SHARDED_STORE.unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(SHARDED_STORE), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    res = {}
+    try:
+        mesh = make_host_mesh((1, 1))
+        rng = np.random.default_rng(5)
+
+        def inputs(cfg, b, s, kind):
+            specs = sharding.input_specs(cfg, ShapeCase("c", s, b, kind),
+                                         mesh)
+            return {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, i.shape).astype(np.int64)).cuda()
+                for k, i in specs.items() if k != "pos"}, specs
+
+        def placed(batch, specs):
+            return {k: sharding.distribute(v, specs[k].spec, mesh)
+                    for k, v in batch.items()}
+
+        def rel(a, b):
+            a, b = a.detach().float(), b.detach().float()
+            return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+        def run(fn, label):
+            _reset_counters()
+            t = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            return got, _launch_counts(), time.perf_counter() - t
+
+        # the training step
+        cfg = published_config(TRAIN_ARCH, _widths(TRAIN_ARCH))
+        params = _params(cfg)
+        batch, specs = inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, "train")
+        opt = make_optimizer("adamw", **TRAIN_OPT)
+        ref = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                       params)
+        (ref, _, m_u), n_u, s_u = run(lambda: make_train_step(cfg, opt)(
+            ref, opt.init(ref), batch), "unsharded")
+        sp = sharding.shard_params(params, cfg, mesh)
+        del params
+        with logical_rules(mesh, make_rules(cfg, mesh, TRAIN_BATCH)):
+            (sp, _, m_s), n_s, s_s = run(lambda: make_train_step(cfg, opt)(
+                sp, opt.init(sp), placed(batch, specs)), "sharded")
+        leaves = [rel(a.full_tensor(), b) for a, b in zip(
+            tree_leaves(sp), tree_leaves(ref))]
+        res["train"] = {
+            "loss": [float(m_u["loss"]), float(m_s["loss"].full_tensor())],
+            "leaf_rel_l2_max": max(leaves),
+            "leaves_bit_equal": sum(r == 0.0 for r in leaves),
+            "leaves": len(leaves), "launches": [n_u, n_s],
+            "seconds": [s_u, s_s]}
+        del sp, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving: prefill and greedy decode steps
+        def serve(arch, layers, steps):
+            cfg = published_config(arch, _widths(arch), layers)
+            with torch.inference_mode():
+                p = model_lib.init_params(
+                    torch.Generator(device="cuda").manual_seed(0), cfg,
+                    device="cuda")
+            b = 4
+            toks, specs = inputs(cfg, b, SHARDED_PROMPT, "prefill")
+            toks = toks["tokens"]
+            total = SHARDED_PROMPT + steps
+
+            def generate(params, cache, place):
+                logits, cache = model_lib.prefill(params, cfg, place(toks),
+                                                  cache)
+                out, seq = [logits], []
+                for i in range(steps):
+                    nxt = logits.argmax(-1) if not hasattr(
+                        logits, "full_tensor") else \
+                        logits.full_tensor().argmax(-1)
+                    seq.append(nxt)
+                    pos = torch.full((b,), SHARDED_PROMPT + i,
+                                     dtype=torch.int64, device="cuda")
+                    logits, cache = model_lib.decode_step(
+                        params, cfg, place(nxt), cache, place(pos))
+                    out.append(logits)
+                return out, seq
+
+            with torch.no_grad():
+                (lu, tu), n_u, s_u = run(lambda: generate(
+                    p, model_lib.init_cache(cfg, b, total, device="cuda"),
+                    lambda t: t), "unsharded")
+                with logical_rules(mesh, make_rules(cfg, mesh, b)):
+                    sp = sharding.shard_params(p, cfg, mesh)
+                    cache = sharding.shard_cache(model_lib.init_cache(
+                        cfg, b, total, device="cuda"), cfg, mesh, b)
+                    (ls, ts), n_s, s_s = run(lambda: generate(
+                        sp, cache, lambda t: sharding.distribute(
+                            t, (sharding.batch_axes(mesh, b) or None,)
+                            + (None,) * (t.dim() - 1), mesh)), "sharded")
+            return {"logits_max_abs": max(float(
+                (a.full_tensor().float() - b.float()).abs().max())
+                for a, b in zip(ls, lu)),
+                "greedy_equal": all(bool((a == b).all())
+                                    for a, b in zip(ts, tu)),
+                "launches": [n_u, n_s], "seconds": [s_u, s_s]}
+
+        res["llama_serve"] = serve(TRAIN_ARCH, None, SHARDED_DECODE)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["zamba2_prefill"] = serve(ZTRAIN_ARCH, SHARDED_ZAMBA_LAYERS, 0)
+    finally:
+        dist.destroy_process_group()
+        SHARDED_STORE.unlink(missing_ok=True)
+    res["seconds"] = time.perf_counter() - t0
+    out.put(res)
+
+
+def _sharded_dryrun(out):
+    """Phase 5 (b), in a spawned child: the dry-run's cells of
+    ``SHARDED_DRYRUN`` on meta tensors over the fake 256- or 512-rank
+    mesh of device type cuda, on the card's host (no tensor on the
+    card)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import release
+    t0 = time.perf_counter()
+    recs = []
+    d = ROOT / "build" / "dryrun_torch" / "chip_smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    for arch, shape, mesh in SHARDED_DRYRUN:
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh, d, force=True)
+        rec["seconds"] = time.perf_counter() - t
+        recs.append(rec)
+    release()
+    out.put({"records": recs, "seconds": time.perf_counter() - t0})
+
+
+def run_sharded():
+    """Phase 5: the sharded step (``_sharded_checks``) and the dry-run on
+    the card's host (``_sharded_dryrun``), two spawned children at once
+    (a process holds one default process group: NCCL for the one, fake
+    for the other).  Checks (a): loss and every leaf of the step within
+    ``SHARDED_REL_L2`` of the unsharded step, the same greedy tokens, and
+    the same kernel launches as the unsharded calls, so the DTensor route
+    reached the hand-written kernels; (b): every record ok.  Prints both
+    and the phase's seconds beside ``SHARDED_BUDGET_S``."""
+    import multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    qa, qb = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=_sharded_checks, args=(qa,)),
+             ctx.Process(target=_sharded_dryrun, args=(qb,))]
+    for pr in procs:
+        pr.start()
+    got = []
+    for q, pr in zip((qa, qb), procs):
+        res = None
+        while res is None and (pr.is_alive() or not q.empty()):
+            try:
+                res = q.get(timeout=1)
+            except Exception:
+                if time.perf_counter() - t0 > 10 * SHARDED_BUDGET_S:
+                    break
+        got.append(res)
+        pr.join(timeout=30)
+        if pr.is_alive():
+            pr.kill()
+    a, b = got
+    if a is None or b is None:
+        raise AssertionError(f"phase 5: a child failed (exit codes "
+                             f"{[pr.exitcode for pr in procs]})")
+    print("sharded step on the card:", json.dumps(a, default=str))
+    tr = a["train"]
+    lu, ls = tr["loss"]
+    if not (abs(lu - ls) <= SHARDED_REL_L2 * abs(lu)
+            and tr["leaf_rel_l2_max"] <= SHARDED_REL_L2):
+        raise AssertionError(f"sharded training step: loss {ls} against "
+                             f"{lu}, leaves up to {tr['leaf_rel_l2_max']}")
+    for key in ("train", "llama_serve", "zamba2_prefill"):
+        n_u, n_s = a[key]["launches"]
+        if n_u != n_s or not any(n_s.values()):
+            raise AssertionError(f"sharded {key}: launches {n_s}, "
+                                 f"unsharded {n_u}")
+    for key in ("llama_serve", "zamba2_prefill"):
+        if not a[key]["greedy_equal"]:
+            raise AssertionError(f"sharded {key}: other greedy tokens")
+    if not a["zamba2_prefill"]["launches"][1]["mamba_chunk_scan"]:
+        raise AssertionError("sharded zamba2 prefill: no SSD launch")
+    for rec in b["records"]:
+        r = rec.get("roofline", {})
+        full = rec.get("full", {})
+        mem = full.get("memory", {})
+        print(f"dry-run {rec['arch']} {rec['shape']} {rec['mesh']}: "
+              f"{rec['status']} {rec.get('error', '')}; args "
+              f"{mem.get('argument_bytes_per_dev')} B, saved "
+              f"{mem.get('saved_bytes_per_dev')} B a device; flops "
+              f"{full.get('flops')}; wire "
+              f"{json.dumps(full.get('collective_bytes_by_op'))}; terms "
+              f"{r.get('t_compute_s')} / {r.get('t_memory_s')} / "
+              f"{r.get('t_collective_s')} s, {r.get('bottleneck')}; "
+              f"{rec['seconds']:.1f} s", flush=True)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {rec['arch']} {rec['shape']}: "
+                                 f"{rec.get('trace', '')[-2000:]}")
+    wall = time.perf_counter() - t0
+    print(f"phase 5 sharded: {wall:.1f} s (budget {SHARDED_BUDGET_S} s; "
+          f"(a) {a['seconds']:.1f} s, (b) {b['seconds']:.1f} s in their "
+          f"children)", flush=True)
+    return a, b
+
+
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-times", action="store_true",
@@ -4580,6 +4848,9 @@ def main(argv=()) -> int:
                     help="only build the kernels (timed by library) and "
                          "run the task runtime's phase on the card's host "
                          "(run_process_runtime)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only build the kernels and run phase 5, the "
+                         "sharded step and the dry-run (run_sharded)")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose src/repro_torch --rmsnorm-times, "
                          "--ssd-times, --flash-bwd-times or "
@@ -4619,6 +4890,13 @@ def main(argv=()) -> int:
         return 0
     if args.xlstm_depth:
         xlstm_depth(_card())
+        return 0
+    if args.sharded:
+        from repro_torch.kernels import build
+        print(_card())
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        build.build_all()
+        run_sharded()
         return 0
     if args.process_runtime:
         from repro_torch.kernels import build
@@ -4763,6 +5041,11 @@ def main(argv=()) -> int:
     for arch, key in WIDE_KEYS.items():
         launches[key], rms_calls[key], _ = run_training(card, arch, key)
         done(f"3 {key}")
+
+    # 5. the sharded step and the dry-run (before the numbers, whose
+    # launch counts are those of phase 3)
+    run_sharded()
+    done("5 sharded")
 
     # 4. numbers
     rows = kernel_numbers(inputs, launches, rms_calls, card)

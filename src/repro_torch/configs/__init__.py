@@ -37,3 +37,7 @@ def get_config(name: str, smoke: bool = False):
         raise NotImplementedError(f"{name}: not ported yet")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.smoke_config() if smoke else mod.config()
+
+
+def all_arch_names() -> list[str]:
+    return list(ARCHS)

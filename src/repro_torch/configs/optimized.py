@@ -2,9 +2,9 @@
 
 ``optimized_config(name)`` layers each arch's fusion and sharding choices
 over its published config, with the overrides of the JAX package.
-``seq_parallel`` and ``moe_sharding`` are kept so that the configs equal
-JAX's field by field; on one card they change nothing (the port has no
-mesh yet).  ``_moe_group_size`` sets ``moe.group_size``, the tokens of an
+``seq_parallel`` and ``moe_sharding`` equal JAX's field by field and act
+through :func:`repro_torch.parallel.annotate.make_rules` on a mesh (the
+``seq`` rule, the MoE layout); on one card they change nothing.  ``_moe_group_size`` sets ``moe.group_size``, the tokens of an
 MoE dispatch group.  Any other name raises "not ported yet" through
 :func:`get_config`.
 """

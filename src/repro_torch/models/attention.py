@@ -25,11 +25,13 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.models.config import LayerSpec, ModelConfig, dtype_of
+from repro_torch.parallel.annotate import hint, local_matmul
 
 Params = Any
 
@@ -80,13 +82,15 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in params:  # one projection matmul instead of three
-        q, k, v = torch.split(x @ params["wqkv"], [h * hd, kv * hd, kv * hd],
-                              dim=-1)
+        q, k, v = torch.split(x @ hint(params["wqkv"], "wt_d", "heads_out"),
+                              [h * hd, kv * hd, kv * hd], dim=-1)
     else:
-        q, k, v = (x @ params[w] for w in ("wq", "wk", "wv"))
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+        q = x @ hint(params["wq"], "wt_d", "heads_out")
+        k = x @ hint(params["wk"], "wt_d", "kv_out")
+        v = x @ hint(params["wv"], "wt_d", "kv_out")
+    q = hint(q.reshape(b, s, h, hd), "batch", "attn_seq", "heads", None)
+    k = hint(k.reshape(b, s, kv, hd), "batch", "seq", "kv_heads", None)
+    v = hint(v.reshape(b, s, kv, hd), "batch", "seq", "kv_heads", None)
     if spec.qk_norm:
         q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
@@ -99,11 +103,11 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
 
     if cache is None or s > 1:  # train, or prefill
         if cache is not None:
-            cache["k"][:, :s].copy_(k)
-            cache["v"][:, :s].copy_(v)
+            _write_prefix(cache["k"], k)
+            _write_prefix(cache["v"], v)
         out = ops.flash_attention(q, k, v, causal=True, window=window,
                                   softcap=softcap, scale=scale)
-        return out.reshape(b, s, h * hd) @ params["wo"], cache
+        return _out_proj(params, out, b, s), cache
 
     # decode: write (k, v) at pos then attend to the whole cache with a
     # validity mask (<= pos, > pos - window).
@@ -113,15 +117,86 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     out = ops.decode_attention(q, cache["k"], cache["v"],
                                lengths=(pos + 1).to(torch.int32),
                                window=window, softcap=softcap, scale=scale)
-    return out.reshape(b, s, h * hd) @ params["wo"], cache
+    return _out_proj(params, out, b, s), cache
+
+
+def _out_proj(params: Params, out: torch.Tensor, b: int,
+              s: int) -> torch.Tensor:
+    out = hint(out, "batch", "attn_seq", "heads", None).reshape(b, s, -1)
+    wo = hint(params["wo"], "heads_out", "wt_d")
+    if isinstance(out, DTensor):  # back in the residual stream's layout
+        return hint(local_matmul(out, wo), "batch", "seq", "embed")
+    return out @ wo
+
+
+def _write_prefix(buf: torch.Tensor, val: torch.Tensor) -> None:
+    """buf: (B, T, ...), val: (B, S, ...) with S <= T: writes val at
+    positions [0, S) in place.  A DTensor buf sharded on T is written shard
+    by shard (DTensor would slice a copy of it): val, placed as buf but
+    whole on S, gives each rank the rows of its positions."""
+    if not isinstance(buf, DTensor):
+        buf[:, :val.shape[1]].copy_(val)
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = buf.device_mesh
+    pls = tuple(Replicate() if p.is_shard(1) else p for p in buf.placements)
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if tuple(val.placements) != pls:
+        val = val.redistribute(mesh, pls)
+    shape, off = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    lo, hi = off[1], min(off[1] + shape[1], val.shape[1])
+    if hi > lo:
+        buf.to_local()[:, :hi - lo].copy_(val.to_local()[:, lo:hi])
 
 
 def _scatter_time(buf: torch.Tensor, val: torch.Tensor,
                   pos: torch.Tensor) -> None:
     """buf: (B, S, ...), val: (B, ...), pos: (B,): writes val at pos in
-    place (the JAX version returns an updated copy)."""
+    place (the JAX version returns an updated copy).  A DTensor buf is
+    written shard by shard: each rank writes the rows whose position falls
+    in its shard of S (val and pos are first placed to match buf)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(buf, DTensor):
+        return _scatter_time_sharded(buf, val, pos)
     b = buf.shape[0]
     buf[torch.arange(b, device=buf.device), pos] = val.to(buf.dtype)
+
+
+def _scatter_time_sharded(buf, val, pos) -> None:
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = buf.device_mesh
+
+    def like(p):  # buf's placement of a dim, for val (B, ...) without S
+        if p.is_shard() and p.dim != 1:
+            return Shard(p.dim - 1 if p.dim > 1 else 0)
+        return Replicate()
+
+    def placed(t, pls):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t if tuple(t.placements) == tuple(pls) else \
+            t.redistribute(mesh, pls)
+
+    val = placed(val, [like(p) for p in buf.placements])
+    pos = placed(pos, [p if p == Shard(0) else Replicate()
+                       for p in buf.placements])
+    shape, off = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    bl, vl, pl = buf.to_local(), val.to_local(), pos.to_local() - off[1]
+    rows = torch.arange(bl.shape[0], device=bl.device)
+    mine = (pl >= 0) & (pl < shape[1])
+    at = torch.where(mine, pl, 0)
+    old = bl[rows, at]
+    bl[rows, at] = torch.where(
+        mine.reshape(-1, *([1] * (vl.dim() - 1))), vl.to(bl.dtype), old)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +299,57 @@ def _mla_attend_causal(cfg: ModelConfig, q_nope, q_rope, ckv, krope,
     return torch.cat(outs, dim=1)
 
 
+def _mla_sharded(cfg: ModelConfig, q_nope, q_rope, ckv, krope, wk_b, wv_b,
+                 *rest):
+    """MLA's attention on DTensors, each rank on its own batch rows and
+    query heads (``local_map``): the latents ``ckv``/``krope`` (and the
+    decode mask) whole on every rank that holds heads (a cache whose
+    latent dim is sharded is gathered), the up-projections ``wk_b``/
+    ``wv_b`` sharded by the same heads.  DTensor's own einsums would
+    flatten a batch and a head dim sharded on two mesh dims, which
+    PyTorch before 2.13 refuses.  ``rest``: (absorbed,) for the causal
+    form, (mask, absorbed) for a decode step."""
+    import dataclasses
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, qpl = q_nope.device_mesh, tuple(q_nope.placements)
+    if any(p.is_shard() and p.dim not in (0, 2) for p in qpl):
+        raise NotImplementedError(f"MLA on DTensors: q placed {qpl}")
+    rows = tuple(p if p == Shard(0) else Replicate() for p in qpl)
+    cols = tuple(Shard(1) if p == Shard(2) else Replicate() for p in qpl)
+
+    def placed(t, pls):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t if tuple(t.placements) == pls else t.redistribute(mesh, pls)
+
+    q_rope = placed(q_rope, qpl)
+    ckv, krope = placed(ckv, rows), placed(krope, rows)
+    wk_b, wv_b = placed(wk_b, cols), placed(wv_b, cols)
+    heads = q_nope.to_local().shape[2]
+    lcfg = dataclasses.replace(cfg, num_heads=heads)
+    g_rows = tuple(Partial() if p == Shard(2) else p for p in rows)
+    g_cols = tuple(Partial() if p == Shard(0) else c
+                   for p, c in zip(qpl, cols))
+    args = [q_nope, q_rope, ckv, krope, wk_b, wv_b]
+    pls, gpls = [qpl, qpl, rows, rows, cols, cols], \
+        [qpl, qpl, g_rows, g_rows, g_cols, g_cols]
+    if len(rest) == 2:  # a decode step's mask (B,1,T)
+        args.append(placed(rest[0], rows))
+        pls.append(rows)
+        gpls.append(rows)
+        attend = _mla_attend_block
+    else:
+        attend = _mla_attend_causal
+    absorbed = rest[-1]
+    return local_map(lambda *t: attend(lcfg, *t, absorbed),
+                     out_placements=list(qpl), in_placements=tuple(pls),
+                     in_grad_placements=tuple(gpls),
+                     device_mesh=mesh)(*args)
+
+
 def apply_mla(params: Params, cfg: ModelConfig, spec: LayerSpec,
               x: torch.Tensor, positions: torch.Tensor,
               cache: Params | None = None, *,
@@ -233,14 +359,16 @@ def apply_mla(params: Params, cfg: ModelConfig, spec: LayerSpec,
     b, s, _ = x.shape
     m = cfg.mla
     h = cfg.num_heads
-    q = rmsnorm(params["q_norm"], x @ params["wq_a"], eps=cfg.norm_eps)
-    q = (q @ params["wq_b"]).reshape(b, s, h,
-                                     m.nope_head_dim + m.rope_head_dim)
+    q = rmsnorm(params["q_norm"], x @ hint(params["wq_a"], "wt_d", None),
+                eps=cfg.norm_eps)
+    q = (q @ hint(params["wq_b"], None, "heads_out")).reshape(
+        b, s, h, m.nope_head_dim + m.rope_head_dim)
+    q = hint(q, "batch", "attn_seq", "heads", None)
     q_nope, q_rope = torch.split(q, [m.nope_head_dim, m.rope_head_dim],
                                  dim=-1)
     q_rope = common.apply_rope(q_rope, positions, theta=cfg.rope_theta)
 
-    ckv, krope = torch.split(x @ params["wkv_a"],
+    ckv, krope = torch.split(x @ hint(params["wkv_a"], "wt_d", None),
                              [m.kv_lora_rank, m.rope_head_dim], dim=-1)
     ckv = rmsnorm(params["kv_norm"], ckv, eps=cfg.norm_eps)
     krope = common.apply_rope(krope[:, :, None], positions,
@@ -248,11 +376,15 @@ def apply_mla(params: Params, cfg: ModelConfig, spec: LayerSpec,
 
     if cache is None or s > 1:  # train, or prefill
         if cache is not None:
-            cache["ckv"][:, :s].copy_(ckv)
-            cache["krope"][:, :s].copy_(krope)
-        out = _mla_attend_causal(cfg, q_nope, q_rope, ckv, krope,
-                                 params["wk_b"], params["wv_b"], absorbed)
-        return out.reshape(b, s, -1) @ params["wo"], cache
+            _write_prefix(cache["ckv"], ckv)
+            _write_prefix(cache["krope"], krope)
+        attend = (_mla_sharded if isinstance(q_nope, DTensor)
+                  else _mla_attend_causal)
+        out = attend(cfg, q_nope, q_rope, ckv, krope,
+                     hint(params["wk_b"], None, "heads_out"),
+                     hint(params["wv_b"], None, "heads_out"), absorbed)
+        return out.reshape(b, s, -1) @ hint(params["wo"], "heads_out",
+                                            "wt_d"), cache
 
     pos = positions[:, 0]
     _scatter_time(cache["ckv"], ckv[:, 0], pos)
@@ -260,10 +392,12 @@ def apply_mla(params: Params, cfg: ModelConfig, spec: LayerSpec,
     t = cache["ckv"].shape[1]
     mask = torch.arange(t, device=x.device)[None, None, :] \
         <= pos[:, None, None]                                   # (B,1,T)
-    out = _mla_attend_block(cfg, q_nope, q_rope, cache["ckv"],
-                            cache["krope"], params["wk_b"], params["wv_b"],
-                            mask, absorbed)
-    return out.reshape(b, s, -1) @ params["wo"], cache
+    attend = (_mla_sharded if isinstance(q_nope, DTensor)
+              else _mla_attend_block)
+    out = attend(cfg, q_nope, q_rope, cache["ckv"], cache["krope"],
+                 params["wk_b"], params["wv_b"], mask, absorbed)
+    return out.reshape(b, s, -1) @ hint(params["wo"], "heads_out",
+                                        "wt_d"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +440,8 @@ def apply_cross_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     dtype: the flash kernel takes one dtype."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    q = (x @ hint(params["wq"], "wt_d", "heads_out")).reshape(b, s, h, hd)
+    q = hint(q, "batch", "attn_seq", "heads", None)
     q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
 
     if image_embeds is not None:
@@ -314,8 +449,10 @@ def apply_cross_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
             dt = torch.promote_types(image_embeds.dtype, w.dtype)
             return (image_embeds.to(dt) @ w.to(dt)).to(x.dtype).reshape(
                 b, -1, kv, hd)
-        k = rmsnorm(params["k_norm"], project(params["wk"]), eps=cfg.norm_eps)
-        v = project(params["wv"])
+        k = rmsnorm(params["k_norm"],
+                    project(hint(params["wk"], "wt_d", "kv_out")),
+                    eps=cfg.norm_eps)
+        v = project(hint(params["wv"], "wt_d", "kv_out"))
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
@@ -326,6 +463,6 @@ def apply_cross_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
 
     out = ops.flash_attention(q, k, v, causal=False, window=None,
                               softcap=None, scale=1.0 / math.sqrt(hd))
-    out = out.reshape(b, s, h * hd) @ params["wo"]
+    out = _out_proj(params, out, b, s)
     gate = torch.tanh(params["gate"].float()).to(out.dtype)
     return out * gate, cache

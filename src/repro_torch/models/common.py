@@ -8,6 +8,7 @@ in ``cfg.dtype``, softmax / norm statistics / rotary angles in fp32.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Sequence
 
@@ -114,6 +115,18 @@ def tree_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """:func:`tree_map` of one tree whose ``fn(path, leaf)`` also gets the
+    leaf's path as :func:`tree_paths` writes it."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def tree_leaves(tree) -> list:
     """The leaves of ``tree`` in :func:`tree_map` order (dict insertion
     order, not JAX's sorted-key order)."""
@@ -126,6 +139,23 @@ def soft_cap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None or cap <= 0:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCase:
+    """One assigned input-shape cell (seq_len x global_batch, kind)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPE_CASES = {
+    "train_4k": ShapeCase("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCase("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCase("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCase("long_500k", 524288, 1, "decode"),
+}
 
 
 ACTIVATIONS = {

@@ -129,8 +129,7 @@ class ModelConfig:
         device."""
         from repro_torch.models import model as model_lib
         from repro_torch.models.common import tree_paths
-        return tree_paths(model_lib.init_params(torch.Generator(), self,
-                                                "meta"))
+        return tree_paths(model_lib.abstract_params(self))
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings included once if tied)."""

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.models.config import ModelConfig, dtype_of
+from repro_torch.parallel.annotate import hint
 
 Params = Any
 
@@ -94,7 +95,8 @@ def apply_mamba2(params: Params, cfg: ModelConfig, spec, x: torch.Tensor,
     conv_out, new_tail = _causal_conv(conv_in, params["conv_w"],
                                       params["conv_b"], tail)
     xi, bmat, cmat = torch.split(conv_out, [d_inner, ns, ns], dim=-1)
-    xh = xi.reshape(bsz, s, nh, hd)
+    xh = hint(xi.reshape(bsz, s, nh, hd), "batch", "seq", "mamba_heads",
+              None)
 
     if s == 1 and cache is not None:  # decode step
         h = cache["ssm"]
@@ -117,5 +119,8 @@ def apply_mamba2(params: Params, cfg: ModelConfig, spec, x: torch.Tensor,
         cache["ssm"].copy_(h)
 
     y = y.to(x.dtype) * F.silu(z)
-    y = rmsnorm(params["norm"], y, eps=cfg.norm_eps)
+    # the gated norm reads whole rows of d_inner: a mamba_heads-sharded y
+    # is gathered here (XLA all-reduces the rows' sums of squares instead)
+    y = rmsnorm(params["norm"], hint(y, "batch", "seq", None),
+                eps=cfg.norm_eps)
     return y @ params["out_proj"], cache

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.models.common import ACTIVATIONS, dense_init
 from repro_torch.models.config import ModelConfig, dtype_of
+from repro_torch.parallel.annotate import hint
 
 Params = Any
 
@@ -34,10 +35,15 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 def apply_mlp(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[cfg.activation]
+    # weight hints: the just-in-time FSDP gather (strip any 'data' shard)
+    # and the TP layout of the hidden dim
+    wo = hint(params["wo"], "ffn", "wt_d")
     if "wgu" in params:  # fused gate+up: one matmul
-        gu = (x @ params["wgu"].flatten(1)).unflatten(-1, (2, -1))
-        return (act(gu[..., 0, :]) * gu[..., 1, :]) @ params["wo"]
-    h = act(x @ params["wi"])
-    if "wu" in params:
-        h = h * (x @ params["wu"])
-    return h @ params["wo"]
+        wgu = hint(params["wgu"], "wt_d", None, "ffn")
+        gu = (x @ wgu.flatten(1)).unflatten(-1, (2, -1))
+        h = act(gu[..., 0, :]) * gu[..., 1, :]
+    else:
+        h = act(x @ hint(params["wi"], "wt_d", "ffn"))
+        if "wu" in params:
+            h = h * (x @ hint(params["wu"], "wt_d", "ffn"))
+    return hint(h, "batch", "seq", "ffn") @ wo

@@ -34,6 +34,7 @@ from repro_torch.models import blocks
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        rmsnorm_init, soft_cap)
 from repro_torch.models.config import ModelConfig, dtype_named, dtype_of
+from repro_torch.parallel.annotate import hint
 
 Params = Any
 
@@ -69,17 +70,74 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             for g in cfg.groups]
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The param tree on the ``meta`` device: shapes and dtypes, nothing
+    allocated (JAX's ``eval_shape`` of ``init_params``)."""
+    return init_params(torch.Generator(), cfg, "meta")
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=None) -> Params:
+    """The cache tree of :func:`init_cache` on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, dtype, "meta")
+
+
 def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.num_codebooks:
+    if cfg.num_codebooks and is_dtensor(params["embed"]):
+        x = sum(_rows(params["embed"][i], tokens[..., i])
+                for i in range(cfg.num_codebooks))
+    elif cfg.num_codebooks:
         # tokens (B,S,K): the sum of the K codebooks' embeddings
         book = torch.arange(cfg.num_codebooks, device=tokens.device)
         x = params["embed"][book, tokens].sum(dim=2)
     else:
-        x = params["embed"][tokens]
+        x = _rows(params["embed"], tokens)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    return x
+    return hint(x, "batch", "seq", "embed")
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``; a DTensor table goes through ``F.embedding``, which
+    DTensor takes with the vocab (rows) sharded: each rank looks up its
+    rows and an all-reduce sums the masked results (here, at once: the
+    masked partial sum cannot be saved for the backward)."""
+    if is_dtensor(table):
+        out = torch.nn.functional.embedding(idx, table)
+        from torch.distributed.tensor import Replicate
+        return out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return table[idx]
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim.  Over a DTensor whose last dim (the
+    vocab) is sharded, each rank takes the logsumexp of its shard
+    (``local_map``), and the logsumexp of those partial ones (one value a
+    shard and token) is taken across the shards: no logit leaves its
+    rank."""
+    if not is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = x.ndim - 1
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    part = local_map(
+        lambda xl: torch.logsumexp(xl, dim=-1, keepdim=True),
+        out_placements=[Shard(last) if p.is_shard(last) else p
+                        for p in x.placements],
+        in_placements=(x.placements,), device_mesh=x.device_mesh)(x)
+    top = part.amax(dim=-1, keepdim=True).detach()
+    return (top + torch.log(torch.exp(part - top).sum(
+        dim=-1, keepdim=True))).squeeze(-1)
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -87,12 +145,19 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.num_codebooks:  # (B,S,K,V)
         w = params["head"] if "head" in params else \
             params["embed"].transpose(1, 2)                  # (K,D,V)
-        logits = torch.einsum("bsd,kdv->bskv", x, w)
+        if is_dtensor(w):  # a product a codebook: the einsum would
+            # flatten (K, V) with V sharded, which PyTorch 2.11 refuses
+            logits = torch.stack([x @ w[i] for i in range(w.shape[0])],
+                                 dim=2)
+        else:
+            logits = torch.einsum("bsd,kdv->bskv", x, w)
     elif "head" in params:
         logits = torch.matmul(x, params["head"])
     else:
         logits = torch.matmul(x, params["embed"].T)
-    return soft_cap(logits, cfg.final_softcap or None)
+    axes = (("batch", "seq", None, "vocab") if cfg.num_codebooks
+            else ("batch", "seq", "vocab"))
+    return soft_cap(hint(logits, *axes), cfg.final_softcap or None)
 
 
 def _run(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
@@ -152,17 +217,20 @@ def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            "image_embeds": image_embeds, "moe_stats": True}
     x, _, aux = _run(params, cfg, x, ctx, None)
     logits = _head(params, cfg, x)
-    lse = torch.logsumexp(logits.to(dtype_named(cfg.loss_dtype)),
-                          dim=-1).float()
+    lse = _logsumexp(logits.to(dtype_named(cfg.loss_dtype))).float()
     if cfg.num_codebooks:
         w = params["head"].transpose(1, 2) if "head" in params \
             else params["embed"]                                 # (K,V,D)
-        book = torch.arange(cfg.num_codebooks, device=labels.device)
-        rows = w[book, labels]                                   # (B,S,K,D)
+        if is_dtensor(w):
+            rows = torch.stack([_rows(w[i], labels[..., i])
+                                for i in range(cfg.num_codebooks)], dim=2)
+        else:
+            book = torch.arange(cfg.num_codebooks, device=labels.device)
+            rows = w[book, labels]                               # (B,S,K,D)
         gold = (x.float()[:, :, None] * rows.float()).sum(-1)   # (B,S,K)
     else:
         w = params["head"].T if "head" in params else params["embed"]
-        rows = w[labels]                                         # (B,S,D)
+        rows = _rows(w, labels)                                  # (B,S,D)
         gold = (x.float() * rows.float()).sum(-1)
     if cfg.final_softcap:
         gold = soft_cap(gold, cfg.final_softcap)

@@ -25,6 +25,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models.common import ACTIVATIONS, dense_init
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.parallel.annotate import hint, place
 
 Params = Any
 
@@ -114,6 +115,10 @@ def apply_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     b, s, d = x.shape
     act = ACTIVATIONS[cfg.activation]
     xt = _group(x.reshape(b * s, d), m.group_size)          # (G, Sg, D)
+    from torch.distributed.tensor import DTensor
+    if isinstance(xt, DTensor):
+        y, aux = _apply_moe_sharded(params, cfg, xt, stats=stats)
+        return y.reshape(b, s, d), aux
     g, sg, _ = xt.shape
     e, k = m.num_experts, m.top_k
     logits, weights, idx, keep, slot, cap = route(params, cfg, xt)
@@ -150,3 +155,122 @@ def apply_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     aux = {"moe_aux_loss": aux_loss, "moe_load": frac_tokens,
            "moe_dropped": dropped}
     return y.reshape(b, s, d), aux
+
+
+def _apply_moe_sharded(params: Params, cfg: ModelConfig, xt, *,
+                       stats: bool):
+    """:func:`apply_moe` on DTensors, at JAX's hint sites.  The routing,
+    the slot dispatch and the combine are index ops with no DTensor
+    sharding rule: they run on each rank's groups through ``local_map``
+    (a dispatch group never spans ranks when the groups are sharded as
+    the tokens are; a group that spans ranks, as when there are fewer
+    groups than ranks, is first gathered whole), and the statistics come back as ``Partial`` sums over
+    the ranks' groups.  Between them the expert products run as DTensor
+    expert FFN runs on each rank's experts (:func:`_experts_local`), in
+    the ``experts`` / ``expert_ffn`` layout of the rules; the hints on
+    ``xin`` and ``xout`` move the tokens there and back a mesh dim at a
+    time (an all-to-all where the groups and the experts share a mesh
+    axis)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    m = cfg.moe
+    g, sg, d = xt.shape
+    e, k = m.num_experts, m.top_k
+    act = ACTIVATIONS[cfg.activation]
+    mesh = xt.device_mesh
+    # a group split over ranks (fewer groups than ranks) is gathered whole
+    gpl = tuple(p if p == Shard(0) else Replicate() for p in xt.placements)
+    if tuple(xt.placements) != gpl:
+        xt = xt.redistribute(mesh, gpl)
+    part = tuple(Partial() if p.is_shard() else Replicate() for p in gpl)
+    router = params["router"]
+    rkeys = sorted(router)
+
+    def dispatch(xl, *rl):
+        rp = {"router": dict(zip(rkeys, rl))}
+        logits, weights, idx, keep, slot, cap = route(rp, cfg, xl)
+        gl = xl.shape[0]
+        grp = torch.arange(gl, device=xl.device)[:, None, None]
+        xin = xl.new_zeros((gl, e, cap + 1, d)).index_put(
+            (grp, idx, torch.where(keep, slot, cap)),
+            xl[:, :, None, :].expand(gl, sg, k, d))[:, :, :cap]
+        wk = (weights * keep).to(xl.dtype)
+        probs = (torch.softmax(logits, dim=-1) if m.router == "softmax"
+                 else torch.sigmoid(logits))
+        ft = torch.nn.functional.one_hot(idx, e).sum(2).float().sum((0, 1))
+        kept = keep.to(xl.dtype).sum()
+        return xin, idx, slot, wk, ft, probs.sum((0, 1)), kept
+
+    xin, idx, slot, wk, ft, fp, kept = local_map(
+        dispatch, out_placements=(gpl,) * 4 + (part,) * 3,
+        in_placements=(gpl,) + tuple(router[n].placements for n in rkeys),
+        in_grad_placements=(gpl,) + (part,) * len(rkeys),
+        device_mesh=mesh)(xt, *(router[n] for n in rkeys))
+    xin_pl = tuple(xin.placements)
+    xin = hint(xin, "moe_groups", "experts", None, None, stepwise=True)
+    ex = params["experts"]
+    wi = hint(ex["wi"], "experts", "wt_d", "expert_ffn")
+    wu = hint(ex["wu"], "experts", "wt_d", "expert_ffn")
+    wo = hint(ex["wo"], "experts", "expert_ffn", "wt_d")
+    xout = _experts_local(xin, wi, wu, wo, act)
+    xout = hint(xout, "moe_groups", "experts", None, None)
+    # back to the groups' ranks
+    xout = place(xout, xin_pl, stepwise=True, inner_first=True)
+
+    def combine(xo, il, sl, wl):
+        grp = torch.arange(xo.shape[0], device=xo.device)[:, None, None]
+        return torch.einsum("gskd,gsk->gsd", xo[grp, il, sl], wl)
+
+    y = local_map(combine, out_placements=list(gpl),
+                  in_placements=(xin_pl, gpl, gpl, gpl),
+                  device_mesh=mesh)(xout, idx, slot, wk)
+    y = hint(y, "moe_groups", None, None)
+    if m.num_shared:
+        y = y + apply_mlp(params["shared"], cfg, xt)
+    if not stats:
+        return y, {}
+    frac_tokens = ft / (g * sg)
+    aux_loss = e * torch.sum(frac_tokens * (fp / (g * sg))) \
+        * m.aux_loss_weight
+    dropped = 1.0 - kept / (g * sg * k)
+    return y, {"moe_aux_loss": aux_loss, "moe_load": frac_tokens,
+               "moe_dropped": dropped}
+
+
+def _experts_local(xin, wi, wu, wo, act):
+    """The expert FFN on DTensors (G,E,C,D) by (E,D,F), (E,F,D), each
+    rank on its own experts, groups and slice of F (``local_map``): per
+    mesh dim the tokens' experts shard with the weights' (EP), or their
+    groups with the weights replicated (the weights' gradient summed), or
+    the weights' F with the tokens replicated (TP: the output a partial
+    sum; JAX's hint of h on ``expert_ffn`` is this layout).  DTensor's
+    einsum would gather an expert dim that two mesh dims shard (ep2d)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    out, gx, gi, go = [], [], [], []
+    for px, pi, po in zip(xin.placements, wi.placements, wo.placements):
+        if px == Shard(1) and pi == Shard(0) and po == Shard(0):
+            out.append(px), gx.append(px), gi.append(pi), go.append(po)
+        elif px == Shard(0) and pi.is_replicate() and po.is_replicate():
+            out.append(px), gx.append(px)
+            gi.append(Partial()), go.append(Partial())
+        elif px.is_replicate() and pi == Shard(2) and po == Shard(1):
+            out.append(Partial()), gx.append(Partial())
+            gi.append(pi), go.append(po)
+        elif px.is_replicate() and pi.is_replicate() and po.is_replicate():
+            out.append(px), gx.append(px), gi.append(pi), go.append(po)
+        else:
+            raise NotImplementedError(
+                f"MoE experts on DTensors: tokens placed {xin.placements}, "
+                f"weights {wi.placements} / {wo.placements}")
+
+    def experts(xl, il, ul, ol):
+        h = act(torch.einsum("gecd,edf->gecf", xl, il))
+        h = h * torch.einsum("gecd,edf->gecf", xl, ul)
+        return torch.einsum("gecf,efd->gecd", h, ol)
+
+    return local_map(experts, out_placements=out,
+                     in_placements=(xin.placements, wi.placements,
+                                    wu.placements, wo.placements),
+                     in_grad_placements=tuple(map(tuple, (gx, gi, gi, go))),
+                     device_mesh=xin.device_mesh)(xin, wi, wu, wo)

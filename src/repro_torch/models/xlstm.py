@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from repro_torch.models.common import (dense_init, rmsnorm, rmsnorm_init,
                                        soft_cap)
 from repro_torch.models.config import ModelConfig, dtype_of
+from repro_torch.parallel.annotate import (batch_local, local_matmul,
+                                          place)
 
 Params = Any
 GATE_CAP = 15.0
@@ -117,33 +119,41 @@ def _mlstm_chunked(q, k, v, ig, fg, c0, n0, chunk: int, eps: float = 1e-6):
     return y.reshape(bsz, s, nh, hd), c, n
 
 
+def _mlstm_step(q, k, v, ig, fg, c0, n0):
+    """One decode step of the mLSTM: (y (B,1,d_inner), c, n)."""
+    bsz, _, nh, hd = q.shape
+    logf = F.logsigmoid(fg[:, 0].float())
+    iexp = torch.exp(ig[:, 0].float())
+    fexp = torch.exp(logf)
+    kf, vf = k[:, 0].float(), v[:, 0].float()
+    kv = torch.einsum("bnh,bnd->bnhd", kf, vf)
+    c1 = fexp[..., None, None] * c0 + iexp[..., None, None] * kv
+    n1 = fexp[..., None] * n0 + iexp[..., None] * kf
+    qf = q[:, 0].float() / (hd ** 0.5)
+    num = torch.einsum("bnh,bnhd->bnd", qf, c1)
+    den = torch.einsum("bnh,bnh->bn", qf, n1)
+    y = (num / (den.abs().clamp(min=1.0)[..., None] + 1e-6)
+         ).reshape(bsz, 1, nh * hd)
+    return y, c1, n1
+
+
 def apply_mlstm(params: Params, cfg: ModelConfig, spec, x: torch.Tensor,
                 cache: Params | None = None
                 ) -> tuple[torch.Tensor, Params | None]:
     bsz, s, _ = x.shape
     d_inner, nh, hd = _mdims(cfg)
-    xi, z = (x @ params["up"]).chunk(2, dim=-1)
-    q = (xi @ params["wq"]).reshape(bsz, s, nh, hd)
-    k = (xi @ params["wk"]).reshape(bsz, s, nh, hd)
-    v = (xi @ params["wv"]).reshape(bsz, s, nh, hd)
+    xi, z = _mm(x, params["up"]).chunk(2, dim=-1)
+    q = _mm(xi, params["wq"]).reshape(bsz, s, nh, hd)
+    k = _mm(xi, params["wk"]).reshape(bsz, s, nh, hd)
+    v = _mm(xi, params["wv"]).reshape(bsz, s, nh, hd)
     ig, fg = soft_cap(xi @ params["w_gates"], GATE_CAP).chunk(
         2, dim=-1)                                        # (B,S,NH)
 
     if s == 1 and cache is not None:  # decode
-        c0, n0 = cache["c"], cache["n"]
-        logf = F.logsigmoid(fg[:, 0].float())
-        iexp = torch.exp(ig[:, 0].float())
-        fexp = torch.exp(logf)
-        kf, vf = k[:, 0].float(), v[:, 0].float()
-        kv = torch.einsum("bnh,bnd->bnhd", kf, vf)
-        c1 = fexp[..., None, None] * c0 + iexp[..., None, None] * kv
-        n1 = fexp[..., None] * n0 + iexp[..., None] * kf
-        qf = q[:, 0].float() / (hd ** 0.5)
-        num = torch.einsum("bnh,bnhd->bnd", qf, c1)
-        den = torch.einsum("bnh,bnh->bn", qf, n1)
-        y = (num / (den.abs().clamp(min=1.0)[..., None] + 1e-6)
-             ).reshape(bsz, 1, d_inner)
-        cf, nf = c1, n1
+        step = (batch_local if is_dtensor(q) else
+                lambda f, args, n_out: f(*args))
+        y, cf, nf = step(_mlstm_step, (q, k, v, ig, fg, cache["c"],
+                                       cache["n"]), n_out=3)
     else:
         if cache is not None:
             c0, n0 = cache["c"], cache["n"]
@@ -160,8 +170,13 @@ def apply_mlstm(params: Params, cfg: ModelConfig, spec, x: torch.Tensor,
                              value=val)
             q, k, v = p3(q, 0.0), p3(k, 0.0), p3(v, 0.0)
             ig, fg = p3(ig, -30.0), p3(fg, 30.0)
-        y, cf, nf = _mlstm_chunked(q, k, v, ig, fg, c0, n0,
-                                   cfg.xlstm.chunk)
+        if is_dtensor(q):  # no sharding rule: the rows' shards alone
+            y, cf, nf = batch_local(
+                lambda *t: _mlstm_chunked(*t, cfg.xlstm.chunk),
+                (q, k, v, ig, fg, c0, n0), n_out=3)
+        else:
+            y, cf, nf = _mlstm_chunked(q, k, v, ig, fg, c0, n0,
+                                       cfg.xlstm.chunk)
         y = y[:, :s].reshape(bsz, s, d_inner)
     if cache is not None:
         cache["c"].copy_(cf)
@@ -169,7 +184,7 @@ def apply_mlstm(params: Params, cfg: ModelConfig, spec, x: torch.Tensor,
 
     y = rmsnorm(params["norm"], y.to(x.dtype), eps=cfg.norm_eps)
     y = y * F.silu(z)
-    return y @ params["down"], cache
+    return _mm(y, params["down"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +221,30 @@ def init_slstm_cache(cfg: ModelConfig, spec, batch: int, max_len: int,
             "m": torch.full((batch, nh, hd), -1e30, **f32)}
 
 
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; on DTensors on each rank's rows against the whole
+    weight, so that no output is sharded on a column its reshape splits
+    into heads (the specs replicate the xLSTM's projections but ``wq``,
+    ``wk`` and ``wv``, which the attention rule shards over the model
+    axis: those are gathered, 8 MB each at xlstm-350m's widths)."""
+    if not is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor import Replicate
+    return local_matmul(x, place(w, [Replicate()] * w.device_mesh.ndim))
+
+
+# on ``meta`` tensors (the dry-run) the sLSTM time loop runs this many
+# steps and repeats the last step's output for the rest; the dry-run adds
+# the rest's FLOPs analytically (``dryrun.slstm_correction``), as JAX's
+# adds the scan body's trip count
+META_SCAN_STEPS = 1
+
+
 def _slstm_scan(pre, r, state):
     """pre: (B,S,4,NH,HD) input pre-activations; r: (4,NH,HD,HD); state:
     (h, c, n, m), each (B,NH,HD).  Returns (h_t for every t (B,S,NH,HD),
@@ -221,6 +260,9 @@ def _slstm_scan(pre, r, state):
     pre_t = pre.float().permute(1, 3, 0, 2, 4).flatten(3)   # (S,NH,B,4HD)
     h, c, n, m = (t.transpose(0, 1) for t in state)       # (NH,B,HD)
     ys = []
+    steps = pre_t.shape[0]
+    if pre_t.device.type == "meta":
+        pre_t = pre_t[:min(steps, META_SCAN_STEPS)]
     for p_t in pre_t:
         zi, zf, zz, zo = torch.baddbmm(p_t, h, rr).unflatten(
             -1, (4, hd)).unbind(dim=2)
@@ -234,7 +276,10 @@ def _slstm_scan(pre, r, state):
         h = torch.sigmoid(zo) * c / n.clamp(min=1e-6)
         m = m_new
         ys.append(h)
-    ys = torch.stack(ys, dim=0).permute(2, 0, 1, 3)       # (B,S,NH,HD)
+    ys = torch.stack(ys, dim=0)
+    if len(ys) < steps:  # meta only: the rest of the loop not run
+        ys = torch.cat([ys, h[None].expand(steps - len(ys), *h.shape)])
+    ys = ys.permute(2, 0, 1, 3)                           # (B,S,NH,HD)
     return ys, tuple(t.transpose(0, 1) for t in (h, c, n, m))
 
 
@@ -243,18 +288,24 @@ def apply_slstm(params: Params, cfg: ModelConfig, spec, x: torch.Tensor,
                 ) -> tuple[torch.Tensor, Params | None]:
     bsz, s, d = x.shape
     _, nh, hd = _sdims(cfg)
-    pre = (x @ params["w_in"]).reshape(bsz, s, 4, nh, hd)
+    pre = _mm(x, params["w_in"]).reshape(bsz, s, 4, nh, hd)
     if cache is not None:
         state = (cache["h"], cache["c"], cache["n"], cache["m"])
     else:
         zero = x.new_zeros((bsz, nh, hd), dtype=torch.float32)
         state = (zero, zero, zero, torch.full_like(zero, -1e30))
-    ys, new = _slstm_scan(pre, params["r"].float(), state)
+    if is_dtensor(pre):  # the time loop on the rows' shards alone
+        ys, *new = batch_local(
+            lambda p, h, c, n, m, r: (lambda o: (o[0], *o[1]))(
+                _slstm_scan(p, r, (h, c, n, m))),
+            (pre, *state), (params["r"].float(),), n_out=5)
+    else:
+        ys, new = _slstm_scan(pre, params["r"].float(), state)
     if cache is not None:
         for key, t in zip("hcnm", new):
             cache[key].copy_(t)
     y = ys.reshape(bsz, s, d).to(x.dtype)
     y = rmsnorm(params["norm"], y, eps=cfg.norm_eps)
-    a, b = (y @ params["up_gate"]).chunk(2, dim=-1)
+    a, b = _mm(y, params["up_gate"]).chunk(2, dim=-1)
     y = F.gelu(a, approximate="tanh") * b
-    return y @ params["down"], cache
+    return _mm(y, params["down"]), cache

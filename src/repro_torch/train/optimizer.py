@@ -30,6 +30,15 @@ the last two axes, so it slices only the axes before them (a stacked
 leaf's repeat or expert axes), and its update clip, the RMS of the update
 over the whole leaf, takes a first pass over the slices for the sum of
 squares and a second to apply it (equal up to the order of that sum).
+
+Params may be DTensors (a step sharded over a ``DeviceMesh``): the state
+then mirrors each param's placements (:meth:`Optimizer.abstract_state`),
+with Adafactor's row and column statistics dropping the placement of the
+axis they average over, as JAX's state specs drop their trailing entries.
+Each gradient is first placed as its param.  AdamW and Lion, elementwise,
+then update each rank's local shard (sliced as above); Adafactor runs on
+the DTensors, whose means over a sharded axis DTensor reduces.  The
+global norm and the clip reduce over every shard.
 """
 from __future__ import annotations
 
@@ -68,8 +77,21 @@ def schedule(c: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return c.lr * warm * cos
 
 
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t):
+    """A DTensor's local shard (a replicated scalar's value), else t."""
+    return t.to_local() if _is_dt(t) else t
+
+
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm over every leaf; over DTensor leaves each leaf's sum of
+    squares is reduced over its shards, and the norm is a plain tensor."""
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
+    leaves = [x.full_tensor() if _is_dt(x) else x for x in leaves]
     return torch.stack(leaves).sum().sqrt()
 
 
@@ -89,6 +111,13 @@ class Optimizer:
 
     def apply(self, params, grads, state) -> tuple[Any, Any, dict]:
         raise NotImplementedError
+
+    def abstract_state(self, params, mesh=None) -> Any:
+        """The state of ``params`` (``meta`` DTensors in the dry-run):
+        each leaf placed as its param, reduced-rank statistics dropping
+        the placements of the axes they reduce.  ``mesh`` is JAX's
+        argument; a DTensor carries its own."""
+        return self.init(params)
 
 
 # elements of one slice of a leaf's update (:func:`_slices`): 1 GiB for
@@ -119,15 +148,41 @@ def _slices(shape: torch.Size, keep: int) -> list[tuple]:
             for r in range(0, shape[a - 1], rows)]
 
 
+def _device(p) -> torch.device:
+    return _local(p).device
+
+
 def _step0(params) -> torch.Tensor:
     leaves = tree_leaves(params)
     return torch.zeros((), dtype=torch.int32,
-                       device=leaves[0].device if leaves else None)
+                       device=_device(leaves[0]) if leaves else None)
+
+
+def _zeros(p, shape, drop: int | None = None) -> torch.Tensor:
+    """fp32 zeros of ``shape`` on p's device; for a DTensor p, placed as p
+    with axis ``drop`` of p (the one a statistic averages over) removed."""
+    if not _is_dt(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pls = []
+    for pl in p.placements:
+        if drop is not None and pl.is_shard():
+            d = pl.dim % p.dim()
+            pl = (Replicate() if d == drop % p.dim() else
+                  Shard(d - 1) if d > drop % p.dim() else pl)
+        pls.append(pl)
+    local, _ = compute_local_shape_and_global_offset(
+        torch.Size(shape), p.device_mesh, pls)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=torch.float32, device=_device(p)),
+        p.device_mesh, pls, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def _zeros_f32(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: _zeros(p, p.shape), params)
 
 
 def _clip_factor(c: OptConfig, grads) -> tuple[torch.Tensor, torch.Tensor]:
@@ -138,11 +193,21 @@ def _clip_factor(c: OptConfig, grads) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(c.grad_clip / (norm + 1e-9), max=1.0), norm
 
 
-def _sliced(upd, p, *leaves) -> None:
+def _placed(g, p):
+    """Gradient ``g`` in its param's placements."""
+    if _is_dt(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _sliced(upd, p, g, *leaves) -> None:
     """An elementwise update ``upd(p, g, *state)`` of one leaf, slice by
-    slice (:func:`_slices`, any axis but the last)."""
+    slice (:func:`_slices`, any axis but the last); of a DTensor leaf, on
+    its local shard."""
+    p, g = _local(p), _local(_placed(g, p))
+    leaves = [_local(t) for t in leaves]
     for i in _slices(p.shape, 1):
-        upd(p[i], *(t[i] for t in leaves))
+        upd(p[i], g[i], *(t[i] for t in leaves))
 
 
 class AdamW(Optimizer):
@@ -182,11 +247,11 @@ class Adafactor(Optimizer):
 
     def init(self, params):
         def stat(p):
-            z = dict(dtype=torch.float32, device=p.device)
             if p.dim() >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], **z),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
+                return {"vr": _zeros(p, p.shape[:-1], drop=-1),
+                        "vc": _zeros(p, p.shape[:-2] + p.shape[-1:],
+                                     drop=-2)}
+            return {"v": _zeros(p, p.shape)}
         return {"stats": tree_map(stat, params), "step": _step0(params)}
 
     @torch.no_grad()
@@ -217,6 +282,8 @@ class Adafactor(Optimizer):
             return g / (denom + c.eps)
 
         def upd(p, g, s):  # s: this leaf's stat dict
+            if _is_dt(p):
+                return upd_dt(p, _placed(g, p), s)
             cuts = _slices(p.shape, 2 if "vr" in s else 0)
             sq = 0.0
             for i in cuts:  # pass 1: the moments, and the sum of squares
@@ -230,6 +297,18 @@ class Adafactor(Optimizer):
                 pf = p[i].float()
                 u = u + c.weight_decay * pf
                 p[i].copy_(pf - lr * u)
+
+        def upd_dt(p, g, s):
+            """A DTensor leaf, whole: its means over a sharded axis are
+            reduced by DTensor (plain scalars act as replicated)."""
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                u = update(g, s, True)
+                rms = (u.square().sum() / p.numel() + 1e-30).sqrt()
+                u = u / torch.clamp(rms, min=1.0)
+                pf = p.float()
+                p.copy_(pf - lr * (u + c.weight_decay * pf))
 
         # tree_map follows the params' structure, so each param leaf meets
         # its whole stat dict

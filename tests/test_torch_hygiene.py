@@ -47,6 +47,18 @@ def test_checker_imports_no_torch():
         assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
+def test_sharding_and_launch_are_held_to_it():
+    """The sharding and dry-run packages are among the files above (no
+    jax, no repro), and so is the kernels' DTensor route."""
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+    assert {"repro_torch/parallel/annotate.py",
+            "repro_torch/parallel/sharding.py",
+            "repro_torch/launch/mesh.py", "repro_torch/launch/roofline.py",
+            "repro_torch/launch/dryrun.py",
+            "repro_torch/kernels/sharded.py",
+            "repro_torch/kernels/meta.py"} <= names
+
+
 def test_port_has_sources():
     assert len(PORT_FILES) > 10
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
