@@ -136,29 +136,40 @@ runs phase 5 (``run_sharded``).  The first form:
    8 x 512 self-attention prefill, decode over (8, 1024) at G = 8, and
    its cross-attention flash (8, 512 or 1, 64, 8, 128) against 2048
    image tokens; rmsnorm at grok-1's 6144, deepseek-v3's 7168, 1536 and
-   512, and the VLM's 8192 and 128 (cross-attention's q_norm and k_norm
-   at their rows).
+   512 (serving and its training step's rows), and the VLM's 8192 and 128
+   (cross-attention's q_norm and k_norm at their rows).  Decode with its
+   log-sum-exp (``_check_decode_lse``) in both dtypes at llama's,
+   gemma-7b's and deepseek-coder's decode steps: the output bit-equal to
+   the call without it, output and log-sum-exp within tol of
+   ``ref.decode_attention_lse``, -inf and 0 for a row of length 0; and
+   llama's cache cut into 2 and 4 pieces over its sequence (lengths that
+   leave a piece empty, a window of 300 across piece boundaries), each
+   piece run by the kernel and the pieces merged by their log-sum-exps,
+   within tol of the kernel on the whole cache and of the plain
+   version.
 3. The serving slices, each at its published width in bf16 with random
    weights from a seeded generator, served through ``ServingEngine`` on
    its warm ``repro_torch.core`` Cluster with events on (16 requests in two
    tenants, prompt lengths uniform in 32-512, 8 slots, 1024 positions, 32
    new tokens each):
-   * llama3.2-1b (flash and decode attention, head dim 64);
-   * zamba2-2.7b (45 mamba2 layers through the SSD kernel, 9 repeats of a
-     weight-shared attention slot through flash and decode attention at
-     head dim 80);
-   * gemma2-27b at its published width and depth (46 layers, post-norms,
+   * llama3.2-1b at 8 of its 16 layers (flash and decode attention, head
+     dim 64);
+   * zamba2-2.7b at 12 of its 54 layers (10 mamba2 layers through the SSD
+     kernel, 2 repeats of a weight-shared attention slot through flash and
+     decode attention at head dim 80);
+   * gemma2-27b at its published width, 8 of its 46 layers (post-norms,
      a 4096 window on every other layer, softcaps 50 and 30, scale 1/12),
      then its long-context check: 4 layers at full width, a 4608-token
      prompt into an 8192-position cache and one decode step, kernel path
      against plain path;
    * gemma-7b (28 layers, head dim 256);
-   * deepseek-coder-33b at its published width, 16 of its 62 layers
+   * deepseek-coder-33b at its published width, 8 of its 62 layers
      (56/8 heads, G = 7);
    * xlstm-350m (21 mLSTM and 3 sLSTM layers in plain torch, 476,597,248
      params: its norms on the rmsnorm kernel at 1024 and 2048; the
      memory check's flood is ``FLOOD[arch]`` requests).
-   Then musicgen-medium (48 layers, 4 codebooks, 1,384,269,312 params),
+   Then musicgen-medium (24 of its 48 layers, 4 codebooks; 1,384,269,312
+   params at full depth),
    which the engine refuses as the JAX engine does, through ``prefill`` and
    ``decode_step`` themselves: 8 prompts of 512 frames x 4 codebooks
    prefilled as one batch into 1024 positions, 32 greedy decode steps
@@ -168,10 +179,10 @@ runs phase 5 (``run_sharded``).  The first form:
    equal to the batched run; the same profile.
    Then the MoE, MLA and vision families, each at its published width
    and ``param_count()`` asserted against the JAX package's:
-   * grok-1-314b at 4 of 64 layers (21.29e9 params; softmax top-2 over 8
-     experts, flash and decode at G = 6 with softcap 30) and
-     deepseek-v3-671b at 1 of 3 dense + 2 of 58 MoE layers (25.45e9
-     params; MLA in plain torch, naive as the engine runs it; sigmoid
+   * grok-1-314b at 2 of 64 layers (softmax top-2 over 8 experts, flash
+     and decode at G = 6 with softcap 30) and deepseek-v3-671b at 1 of 3
+     dense + 1 of 58 MoE layers (13.94e9 params; MLA in plain torch,
+     naive as the engine runs it; sigmoid
      top-8 over 256 experts + 1 shared, the router bias set nonzero from
      the seed), served as above with each engine call's ``moe_dropped``
      reported.  Kernel-vs-plain logits are checked in bf16, with the
@@ -212,12 +223,12 @@ runs phase 5 (``run_sharded``).  The first form:
    the plain path at full width; 3 steps + checkpoint + restore + 3 steps
    equal 6 straight steps (2 layers of the full width, deterministic
    algorithms); step time, tokens/s, MFU and a profile of one step.
-   Then zamba2-2.7b trained the same way at its published width (1.98e9
-   params; the SSD forward and backward kernels, flash at hd 80, rmsnorm
-   at 2560 and 5120): the loss falls 0.5 nat; gradient parity, in fp32,
-   with the SSD also on its plain version; exact launch counts (a step: 90 SSD
-   forward, 45 backward, 18 + 9 flash, 217 + 109 rmsnorm); peak memory;
-   a profile of one step.  Then the optimized llama config (fused QKV and
+   Then zamba2-2.7b trained the same way at its published width, 18 of
+   its 54 layers (``TRAIN_CUT``; the SSD forward and backward kernels,
+   flash at hd 80, rmsnorm at 2560 and 5120): the loss falls 0.5 nat;
+   gradient parity, in fp32, with the SSD also on its plain version;
+   exact launch counts (a step: 30 SSD forward, 15 backward, 6 + 3 flash,
+   73 + 37 rmsnorm); peak memory; a profile of one step.  Then the optimized llama config (fused QKV and
    gate/up): prefill and decode logits against the unfused model on the
    concatenated weights within ``FUSED_REL_L2``, and 8 training steps.
    Then remat "dots" against "full" and "none" at 4 x 2048 (step-1
@@ -226,7 +237,8 @@ runs phase 5 (``run_sharded``).  The first form:
    Adafactor's state is factored; state bytes and step time beside
    AdamW's).
    Then the coordinator slices: llama3.2-1b, and after zamba2's training
-   zamba2-2.7b, at the published width through ``MicrobatchCoordinator``
+   zamba2-2.7b (18 of 54 layers, ``COORD_CUT``), at the published width
+   through ``MicrobatchCoordinator``
    (the same AdamW settings; global batch 4 x 2048 in 4 microbatches of
    1 x 2048, 4 executors, rsds_ws, 2 steps, deterministic algorithms):
    the loss is finite and falls; every kernel's launches (flash and
@@ -255,12 +267,17 @@ runs phase 5 (``run_sharded``).  The first form:
    G 6 with cap 30; the MoE backward under deterministic algorithms) and
    llama-3.2-vision-90b at 5 (4 self + 1 cross; Adafactor; 2048 image
    tokens of 7680 a sequence, so its cross layer runs the non-causal flash
-   backward): gradient parity in bf16 (grok's with the kernel path's
-   router choices pinned to the plain path's, the unpinned figures
-   printed; the VLM's with its gates opened), the loss falls 0.5 nat and
+   backward) and deepseek-v3-671b at 1 of 3 dense + 1 of 58 MoE layers
+   (13.94e9 params; Adafactor; MLA and the experts in plain torch, so its
+   kernels are rmsnorm's forward and backward; its parity's plain-path
+   gradients wait in host memory, ``PARITY_ON_HOST``): gradient parity in
+   bf16 (grok's and deepseek-v3's with the kernel path's router choices
+   pinned to the plain path's, the unpinned figures printed; the VLM's
+   with its gates opened), the loss falls 0.5 nat and
    an unseen batch's stays 0.5 above, exact launches (the flash backward
    by mask: local and global, self and cross), step time, MFU (N =
-   ``active_param_count()`` for grok), peak memory and a profile.
+   ``active_param_count()`` for the MoE families), peak memory and a
+   profile.
    The runtime's trace (``repro_torch.core.tracing``): the llama engine's
    Cluster and both coordinators' run with ``tracing`` on; each prints
    the six segments of every call's span (median and p95 in us, by kind
@@ -272,7 +289,8 @@ runs phase 5 (``run_sharded``).  The first form:
    ``flex_attention`` with the tanh cap as its score_mod, its error
    against the plain version given beside it; for the flash backward
    their autograd backward) and the card's bound; the decode rows also
-   give the host's n_split, and the
+   give the host's n_split and the same call's time with the log-sum-exp
+   output (``ms_with_lse``), and the
    rmsnorm rows the call that launches them (a decode step, a prefill, a
    training step or a coordinator's microbatch, or the VLM's
    cross-attention norms), its norms per call at
@@ -285,7 +303,9 @@ runs phase 5 (``run_sharded``).  The first form:
    their launch counts stay phase 3's), two spawned children at once
    against its ``SHARDED_BUDGET_S``: (a) a 1-rank NCCL group and a (1, 1)
    ``("data", "model")`` mesh on the card, and llama3.2-1b's training
-   step (4 x 2048, 16 layers, AdamW, deterministic algorithms), its
+   step (4 x 2048, 16 layers, AdamW, deterministic algorithms), the same
+   step of its optimized config (fused QKV and gate/up, ``seq_parallel``:
+   k/v placed on their sequence, which the flash route gathers), its
    prefill of 4 x 512 tokens and 8 greedy decode steps, and zamba2-2.7b's
    prefill at 12 layers, each with DTensor params (``parallel.sharding``)
    inside ``logical_rules`` and unsharded on the same params and inputs:
@@ -294,8 +314,9 @@ runs phase 5 (``run_sharded``).  The first form:
    so the DTensor route (``kernels/sharded.py``) reached the hand-written
    kernels; (b) the dry-run's cells of ``SHARDED_DRYRUN`` on meta tensors
    over the fake 256- or 512-rank mesh (device type cuda) on the card's
-   host: each record's status, per-device argument and saved bytes,
-   FLOPs, wire bytes by collective, roofline terms and bottleneck.
+   host, llama3.2-1b's train_4k also with ``--optimized``: each record's
+   status, per-device argument and saved bytes, FLOPs, wire bytes by
+   collective, roofline terms and bottleneck.
 
 Any failed check raises, so the script exits non-zero.  It prints no
 result, and fails, without a CUDA card or outside a checkout of the repo.
@@ -429,7 +450,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # moments alone are 51 GB
 WIDE_TRAIN = {"gemma-7b": (8, "adamw"), "gemma2-27b": (2, "adamw"),
               "deepseek-coder-33b": (4, "adamw"), GROK: (1, "adafactor"),
-              VISION: (5, "adafactor")}
+              VISION: (5, "adafactor"),
+              # the smallest cut that keeps both layer kinds: 1 of 3 dense
+              # + 1 of 58 MoE layers, 13.94e9 params (256 experts of 3 x
+              # 7168 x 2048), 55.8 GB of bf16 weights and gradients; its
+              # config's Adafactor and remat "full"
+              DSV3: ((1, 1), "adafactor")}
 # their peak learning rate (TRAIN_OPT's otherwise): at TRAIN_OPT's 1e-3
 # deepseek-coder's, grok's and the VLM's loss rose again from the third
 # step and ended 0.4 to 2.1 nat above its first (d 6144 to 8192, on an
@@ -441,7 +467,18 @@ WIDE_PLAIN_ITERS = 5
 # (batch, seq) of a training step where it is not TRAIN_BATCH x TRAIN_SEQ:
 # gemma2-27b trains at its context, where its local layers' 4096 window
 # masks (it never does at S = 2048)
-TRAIN_SHAPE = {"gemma2-27b": (1, 8192)}
+TRAIN_SHAPE = {"gemma2-27b": (1, 8192),
+               # 4 x 2048 does not fit: its first step asked for 8 GiB more
+               # with 74.5 GiB allocated (weights and gradients 52 GiB; an
+               # H100 of 79.2 GiB)
+               DSV3: (2, 2048)}
+# the gradient parity's plain-path gradients move to host memory (and are
+# compared leaf by leaf) for these archs: deepseek-v3's weights and two
+# gradient trees, 83.7 GB at its cut, do not fit one card
+PARITY_ON_HOST = {DSV3}
+# rows of deepseek-v3's training-step norms (its rmsnorm calls' rows)
+DSV3_TRAIN_ROWS = int(np.prod(TRAIN_SHAPE.get(DSV3,
+                                              (TRAIN_BATCH, TRAIN_SEQ))))
 # a training slice's depth where it is cut (whole repeats, every width as
 # published): xlstm-350m trains at one of its three (7 mLSTM + 1 sLSTM)
 # repeats.  Its step is host-bound (579503 launches at 24 layers: the
@@ -449,7 +486,15 @@ TRAIN_SHAPE = {"gemma2-27b": (1, 8192)}
 # depth its training took 259-292 s of a script that ran 1100-1159 s, and
 # one run past the script's 1200 s time limit; at 8 layers ~100 s
 # (``--xlstm-depth`` still trains all three repeats)
-TRAIN_CUT = {XLSTM_ARCH: 8}
+TRAIN_CUT = {XLSTM_ARCH: 8,
+             # 3 of 9 repeats of (5 mamba2 + 1 shared attention): the
+             # 1000 s the script should stay under (see SLICES).  (At 24 of
+             # its 48 layers musicgen's unseen batch stayed only 0.44 nat
+             # above the trained one, under LOSS_MARGIN: it trains whole)
+             ZTRAIN_ARCH: 18}
+# a coordinator slice's depth where it is cut (whole repeats), for the
+# same reason
+COORD_CUT = {ZTRAIN_ARCH: 18}
 # the depth of a training slice's gradient parity where it is cut below
 # the trained model's: zamba2's fp32 plain path runs the SSD's sequential
 # recurrence, 84-100 s at its 54 layers; 2 of 9 repeats keep the shared
@@ -572,7 +617,9 @@ RMS_CALLS = [("llama3.2-1b", "decode step", MAX_BATCH, (2048,)),
              (WIDE_KEYS[VISION], "training step q_norm",
               TRAIN_BATCH * TRAIN_SEQ * 64, (128,)),
              (WIDE_KEYS[VISION], "training step k_norm",
-              TRAIN_BATCH * CROSS_T * 8, (128,))]
+              TRAIN_BATCH * CROSS_T * 8, (128,)),
+             (WIDE_KEYS[DSV3], "training step", DSV3_TRAIN_ROWS,
+              (7168, 1536, 512))]
 # rows of the serving forward's sweep in --rmsnorm-times: a decode step,
 # prompts of 32-512 tokens, and on to the training step's, across the
 # forward's change of plan (kernels/rmsnorm.py FEW_ELEMS: past 409, 819
@@ -587,33 +634,39 @@ RMS_TIMED_ROWS = (MAX_BATCH, 32, 64, 128, 192, 256, 384, 512, 768, 1024,
 # 1200 s time limit (1217 s on an H100 machine whose host ran the
 # host-bound phases 20-50% slower than another run of the same tree took
 # them): their depth is cut to whole repeats of each pattern, every width
-# as published
+# as published.  With deepseek-v3's training the script took 872.4 s on
+# one host and 1079.0 s on a slower one, past the 1000 s it should stay
+# under, so gemma2-27b, deepseek-coder-33b, grok-1 and deepseek-v3 serve
+# at half their earlier cuts (and zamba2 trains at ``TRAIN_CUT``, through
+# the coordinator at ``COORD_CUT``); at 1044.1 s on another slow host
+# after those, llama3.2-1b and musicgen-medium serve at half their depth
+# and zamba2 at 12 layers
 SLICES = [
     ("llama3.2-1b", (16, 2048, 32, 8, 64, 8192, 128256, "bfloat16", None),
-     None),
-    # 3 of 9 repeats of (5 mamba2 + 1 shared attention)
+     8),
+    # 2 of 9 repeats of (5 mamba2 + 1 shared attention)
     ("zamba2-2.7b", (54, 2560, 32, 32, 80, 10240, 32000, "bfloat16",
-                     (64, 4, 2, 64, 128)), 18),
-    # 8 of 23 (local, global) pairs
+                     (64, 4, 2, 64, 128)), 12),
+    # 4 of 23 (local, global) pairs
     ("gemma2-27b", (46, 4608, 32, 16, 128, 36864, 256000, "bfloat16", None),
-     16),
+     8),
     ("gemma-7b", (28, 3072, 16, 16, 256, 24576, 256000, "bfloat16", None),
      8),
-    # 16 of 62 layers, for chip time (full depth: 33.3e9 params, 66.7 GB)
+    # 8 of 62 layers, for chip time (full depth: 33.3e9 params, 66.7 GB)
     ("deepseek-coder-33b", (62, 7168, 56, 8, 128, 19200, 32256, "bfloat16",
-                            None), 16),
+                            None), 8),
     # head_dim is the config's; the mLSTM's heads are 2048 / 4 = 512 wide
     # and the sLSTM's 1024 / 4 = 256; 1 of 3 (7 mLSTM + 1 sLSTM) repeats
     (XLSTM_ARCH, (24, 1024, 4, 4, 256, 0, 50304, "bfloat16", None), 8),
-    # served through prefill/decode_step (run_codebook_slice)
+    # served through prefill/decode_step (run_codebook_slice); 24 of 48
     (MUSIC_ARCH, (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", None),
-     None),
-    # 4 of 64 layers (21.29e9 params, 42.6 GB; full depth 316e9)
-    (GROK, (64, 6144, 48, 8, 128, 32768, 131072, "bfloat16", None), 4),
-    # 1 of its 3 dense layers and 2 of its 58 MoE layers (25.45e9 params,
-    # 50.9 GB; full depth 671e9)
+     24),
+    # 2 of 64 layers (full depth 316e9 params)
+    (GROK, (64, 6144, 48, 8, 128, 32768, 131072, "bfloat16", None), 2),
+    # 1 of its 3 dense layers and 1 of its 58 MoE layers (13.94e9 params,
+    # 27.9 GB; full depth 671e9)
     (DSV3, (61, 7168, 128, 128, 128, 18432, 129280, "bfloat16", None),
-     (1, 2)),
+     (1, 1)),
     # 2 of 20 repeats of (4 self-attention + 1 cross-attention) = 10 of 100
     # layers (10.66e9 params, 21.3 GB); through prefill/decode_step
     # (run_vision_slice)
@@ -639,6 +692,16 @@ DENSE_ATTN = {
     "deepseek-coder-33b": (56, 8, 128, None, None, 128 ** -0.5),
     GROK: (48, 8, 128, None, 30.0, 128 ** -0.5),     # G = 6
 }
+# the decode kernel's log-sum-exp output (phase 2): at these archs' decode
+# steps against the plain version, and llama's cache cut into each number
+# of DECODE_SHARDS pieces over its sequence, each piece run by the kernel
+# and the pieces merged by their log-sum-exps (as the sharded route merges
+# a cache that ``cache_spec`` splits over its sequence), against the
+# kernel on the whole cache and the plain version; lengths that leave a
+# piece empty, windows of DECODE_SHARD_WINDOWS that cross piece boundaries
+DECODE_LSE_ARCHS = ("llama3.2-1b", "gemma-7b", "deepseek-coder-33b")
+DECODE_SHARDS = (2, 4)
+DECODE_SHARD_WINDOWS = (None, 300)
 
 
 def _randn(rng, shape, dtype):
@@ -1026,6 +1089,8 @@ def wide_flash_bwd_cases():
     cases = {}
     for arch, key in WIDE_KEYS.items():
         b, s = _train_shape(arch)
+        if arch == DSV3:  # MLA runs in plain torch: no flash call
+            continue
         if arch == VISION:
             h, kv, hd = 64, 8, 128
             assert s == CROSS_T
@@ -1045,6 +1110,88 @@ def wide_flash_bwd_cases():
     return cases
 
 
+def _decode_lse_heads(arch):
+    """(heads, kv heads, head dim, window, softcap, scale) of ``arch``'s
+    decode step."""
+    if arch == TRAIN_ARCH:
+        return 32, 8, 64, None, None, 64 ** -0.5
+    return DENSE_ATTN[arch]
+
+
+def _check_decode_lse(rng, dtype):
+    """The decode kernel with its log-sum-exp (``with_lse``): at each of
+    ``DECODE_LSE_ARCHS``' decode step (8 slots over 1024 positions) its
+    output bit-equal to the call without it, output and log-sum-exp within
+    ``tol`` of ``ref.decode_attention_lse`` (in bf16 the plain version
+    rounds each score to bf16 before its fp32 sum: ~2e-3 apart), and a row
+    of length 0 giving -inf and 0; then llama's cache cut into ``DECODE_SHARDS`` pieces, merged by
+    ``ref.merge_attention``, within ``tol`` of the kernel on the whole
+    cache and of the plain version."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    b, t = MAX_BATCH, MAX_LEN
+    for arch in DECODE_LSE_ARCHS:
+        h, kv, hd, window, cap, scale = _decode_lse_heads(arch)
+        q = _randn(rng, (b, 1, h, hd), dtype)
+        k = _randn(rng, (b, t, kv, hd), dtype)
+        v = _randn(rng, (b, t, kv, hd), dtype)
+        lens = rng.integers(1, t + 1, size=(b,))
+        lens[0] = 0
+        kw = dict(lengths=torch.from_numpy(lens.astype(np.int32)).cuda(),
+                  window=window, softcap=cap, scale=scale)
+        got, lse = da.decode_attention(q, k, v, with_lse=True, **kw)
+        alone = da.decode_attention(q, k, v, **kw)
+        want, want_lse = ref.decode_attention_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = f"decode_attention with lse {dtype} {arch}"
+        if not torch.equal(got, alone):
+            raise AssertionError(f"{what}: the output moved with the lse")
+        if not (bool(torch.isneginf(lse[0]).all()) and not got[0].any()):
+            raise AssertionError(f"{what}: a row of length 0 gave "
+                                 f"{lse[0]}")
+        err = _check_close(what, got[1:], want[1:], tol)
+        lse_err = _check_close(what + " (lse)", lse[1:], want_lse[1:], tol)
+        print(f"{what} (b, t, h, kv, hd) = {(b, t, h, kv, hd)}: out max abs "
+              f"err {err:.3e}, lse {lse_err:.3e} (tol {tol}), out bit-equal "
+              f"without lse, length 0: -inf and 0")
+    h, kv, hd, _, _, scale = _decode_lse_heads(TRAIN_ARCH)
+    q = _randn(rng, (b, 1, h, hd), dtype)
+    k = _randn(rng, (b, t, kv, hd), dtype)
+    v = _randn(rng, (b, t, kv, hd), dtype)
+    for n_shards in DECODE_SHARDS:
+        n = t // n_shards
+        # the last piece empty for the first five rows; 150 past a boundary
+        lens = np.asarray([1, 31, n - 1, n, n + 1, n + 150, 2 * n + 7,
+                           t - n - 5], np.int32)
+        lengths = torch.from_numpy(lens).cuda()
+        for window in DECODE_SHARD_WINDOWS:
+            kw = dict(window=window, scale=scale)
+            whole = da.decode_attention(q, k, v, lengths=lengths, **kw)
+            outs, lses = [], []
+            for i in range(n_shards):
+                sl = slice(i * n, (i + 1) * n)
+                o, lse = da.decode_attention(
+                    q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                    lengths=lengths - i * n, with_lse=True, **kw)
+                outs.append(o)
+                lses.append(lse[..., None])
+            merged = ref.merge_attention(outs, lses)
+            plain = ref.decode_attention(q, k, v, lengths=lengths, **kw)
+            torch.cuda.synchronize()
+            empty = sum(int(torch.isneginf(x[:, 0, 0]).sum()) for x in lses)
+            what = (f"decode_attention {dtype} llama's cache in {n_shards} "
+                    f"pieces, window {window}")
+            if not empty:
+                raise AssertionError(f"{what}: no piece was empty")
+            err = _check_close(what, merged, whole, tol)
+            err_plain = _check_close(what + " (plain)", merged, plain, tol)
+            print(f"{what}: merged against the whole cache's kernel max abs "
+                  f"err {err:.3e}, against the plain version "
+                  f"{err_plain:.3e} (tol {tol}); {empty} empty (row, "
+                  f"piece) pairs")
+
+
 def check_kernels():
     """Every kernel against its plain version; returns the slice-shape
     inputs and errors for the timing phase."""
@@ -1059,6 +1206,7 @@ def check_kernels():
         _check_flash(rng, dtype, FLASH_SWEEP_CROSS, out, None, t=CROSS_T)
         _check_decode(rng, dtype, DECODE_SWEEP, out, None)
         _check_decode(rng, dtype, DECODE_SWEEP_DENSE, out, None)
+        _check_decode_lse(rng, dtype)
         _check_ssd(rng, dtype, SSD_SWEEP, out, None)
         _check_ssd_bwd(rng, dtype, [(*c, i % 2 == 0, i % 3 != 1)
                                     for i, c in enumerate(SSD_SWEEP)]
@@ -1923,6 +2071,9 @@ def _decode_row(q, k, v, kw, err, n_split):
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:108",
         kernel=lambda: da.decode_attention(q, k, v, **kw),
+        # the same call with the log-sum-exp output (the sharded cache's)
+        extra_timed={"ms_with_lse": lambda: da.decode_attention(
+            q, k, v, with_lse=True, **kw)},
         plain=lambda: ref.decode_attention(q, k, v, **kw),
         library=_flex_attention(qt, kt, vt, kw, lengths)
         if kw["softcap"] else (
@@ -2130,6 +2281,8 @@ def kernel_numbers(inputs, launches, rms_calls, card):
                                      f"{r['shape'][-1]}"]
             extra = {"call": call[0], "per_call": per}
         ms = time_ms(r["kernel"], flush)
+        for name, fn in r.get("extra_timed", {}).items():
+            extra[name] = time_ms(fn, flush)
         # a plain version timed over a few runs (a sequential loop of
         # 0.2-2 s a call) is warmed up once
         plain_ms = time_ms(r["plain"], flush,
@@ -2699,7 +2852,7 @@ def generate_codes(cfg, params, prompts, image_embeds=None):
     return codes, t1 - t0, time.perf_counter() - t1
 
 
-def run_codebook_slice(arch, widths, card):
+def run_codebook_slice(arch, widths, card, layers=None):
     """Phase 3 for musicgen-medium, which the engine refuses (as the JAX
     engine, whose requests carry one token stream): MAX_BATCH prompts of
     MUSIC_PROMPT frames x 4 codebooks prefilled as one batch, then
@@ -2711,10 +2864,11 @@ def run_codebook_slice(arch, widths, card):
     product sees the batched run's shapes) give the batched run's codes;
     kernel-path logits agree with the plain path; a profile of one decode
     step and one 512-frame prefill.  Returns the launch counts and the
-    rmsnorm launches by call and width, as ``run_slice``."""
+    rmsnorm launches by call and width, as ``run_slice``.  ``layers``
+    cuts the depth as ``published_config`` does."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_leaves
-    cfg = published_config(arch, widths)
+    cfg = published_config(arch, widths, layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         params = model_lib.init_params(gen, cfg, device="cuda")
@@ -3139,6 +3293,20 @@ def parity_sweep(card):
         gc.collect()
 
 
+def _leaf_rel_l2(a, b, chunk=1 << 27):
+    """||a - b|| / ||b|| (at least 1e-30 below), in fp32 over slices of
+    ``chunk`` elements, ``b`` brought to ``a``'s card a slice at a time
+    (a full-width expert leaf in fp32 is 15 GB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, a.numel(), chunk):
+        y = b[i:i + chunk].to(a.device).float()
+        num += float(torch.linalg.vector_norm(a[i:i + chunk].float() - y)
+                     ) ** 2
+        den += float(torch.linalg.vector_norm(y)) ** 2
+    return num ** 0.5 / max(den ** 0.5, 1e-30)
+
+
 def grad_parity(cfg, params, check=True):
     """forward_loss and its gradients on one (2, 512) batch (a VLM's with
     (2, 2048, 7680) image embeddings from the seed) through the kernels,
@@ -3149,7 +3317,9 @@ def grad_parity(cfg, params, check=True):
     kernel path makes the plain path's router choices (``_routes``): in
     bf16 a choice that flips with one op's rounding moves its expert's
     gradients by far more than the rounding; the figures with the kernel
-    path's own choices are reported beside, not checked."""
+    path's own choices are reported beside, not checked.  For an arch of
+    ``PARITY_ON_HOST`` the plain path's gradients wait in host memory
+    while the kernel path runs, and come back a leaf at a time."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import tree_paths
@@ -3161,17 +3331,24 @@ def grad_parity(cfg, params, check=True):
             np.float32)).cuda() if cfg.vision_dim else None)
     names, leaves = zip(*tree_paths(params))
 
+    on_host = cfg.name in PARITY_ON_HOST
+
     def run():
         loss, _ = model_lib.forward_loss(params, cfg, toks[:, :-1],
                                          toks[:, 1:], img)
-        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (deepseek-v3's router bias: it
+        # moves the selection only) gets zeros, as make_grad_fn gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), tuple(
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads))
 
     def compare(loss_k, grads_k, what):
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
         # a leaf whose plain gradient is 0 (none at these inputs) counts
-        # its kernel gradient's norm
-        rels = {n: float((a.float() - b.float()).norm()
-                         / b.float().norm().clamp(min=1e-30))
+        # its kernel gradient's norm; a plain gradient in host memory
+        # comes back to the card a slice at a time
+        rels = {n: _leaf_rel_l2(a, b)
                 for n, a, b in zip(names, grads_k, grads_p)}
         worst = max(rels, key=rels.get)
         print(f"{cfg.name} gradient parity ({cfg.dtype}{what}) at (B, S) = "
@@ -3190,6 +3367,9 @@ def grad_parity(cfg, params, check=True):
             mock.patch.object(ops, "mamba_chunk_scan", ref.mamba_chunk_scan), \
             _routes(plain_routes):
         loss_p, grads_p = run()
+        if on_host:  # freed on the card before the kernel path runs
+            grads_p = tuple(g.to("cpu") for g in grads_p)
+            torch.cuda.empty_cache()
     plain_s = time.perf_counter() - t0
     if cfg.moe:
         with _routes([], plain_routes):
@@ -3417,6 +3597,7 @@ MFU_FORMULA = ("(6 N B S + 12 hd H B P) / step time / 989e12; N = "
                "E experts); P = the live (query, key) pairs of every "
                "attention layer: S (S + 1) / 2 causal, less what a window "
                "masks, S T for cross-attention against T image tokens; an "
+               "MLA layer's 12 hd is 6 (nope + rope + v head dims); an "
                "mLSTM's intra-chunk products are not counted")
 
 
@@ -3426,7 +3607,7 @@ def _mfu(cfg, step_ms):
     backward."""
     b, s = _train_shape(cfg.name)
     n_params = cfg.active_param_count() if cfg.moe else cfg.param_count()
-    pairs = 0
+    pairs = mla_pairs = 0
     for g in cfg.groups:
         for spec in g.pattern:
             if spec.kind == "cross_attn":
@@ -3434,7 +3615,13 @@ def _mfu(cfg, step_ms):
             elif spec.kind == "attn":
                 w = min(spec.window or s, s)
                 pairs += g.repeat * (w * (w + 1) // 2 + (s - w) * w)
+            elif spec.kind == "mla":
+                mla_pairs += g.repeat * s * (s + 1) // 2
     attn = 12 * cfg.head_dim * cfg.num_heads * b * pairs
+    if mla_pairs:  # Q K^T over nope + rope dims, P V over v dims
+        m = cfg.mla
+        attn += (6 * (m.nope_head_dim + m.rope_head_dim + m.v_head_dim)
+                 * cfg.num_heads * b * mla_pairs)
     flops = 6 * n_params * b * s + attn
     return flops, n_params, flops / (step_ms / 1e3) / PEAK_FLOPS
 
@@ -3843,7 +4030,7 @@ def run_coordinator(card, arch=TRAIN_ARCH, conformance=None):
     from repro_torch.models.common import tree_leaves, tree_map, tree_paths
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import make_train_step
-    cfg = published_config(arch, _widths(arch))
+    cfg = published_config(arch, _widths(arch), COORD_CUT.get(arch))
     batch = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
     torch.use_deterministic_algorithms(True)
     walls, fn_walls, steps, live = [], [], [], []
@@ -4575,10 +4762,13 @@ class Conformance:
 # cells printed on the card's host, the prompt of its serving checks, its
 # budget (seconds), and the leaves' rel. L2 a sharded step may differ by
 SHARDED_STORE = ROOT / "build" / "chip_smoke_sharded_store"
-SHARDED_DRYRUN = [("llama3.2-1b", "train_4k", "single"),
-                  ("deepseek-v3-671b", "train_4k", "single"),
-                  ("zamba2-2.7b", "long_500k", "single"),
-                  ("gemma2-27b", "decode_32k", "multi")]
+SHARDED_DRYRUN = [("llama3.2-1b", "train_4k", "single", False),
+                  ("deepseek-v3-671b", "train_4k", "single", False),
+                  ("zamba2-2.7b", "long_500k", "single", False),
+                  ("gemma2-27b", "decode_32k", "multi", False),
+                  # the optimized config: k/v sequence-sharded (the flash
+                  # route's gather)
+                  ("llama3.2-1b", "train_4k", "single", True)]
 SHARDED_PROMPT, SHARDED_DECODE, SHARDED_ZAMBA_LAYERS = 512, 8, 12
 SHARDED_BUDGET_S = 60.0
 SHARDED_REL_L2 = 1e-4
@@ -4591,10 +4781,13 @@ def _launch_counts():
 def _sharded_checks(out):
     """Phase 5 (a), in a spawned child: a 1-rank NCCL group, a (1, 1)
     ``("data", "model")`` mesh on the card, and the llama3.2-1b training
-    step (4 x 2048, 16 layers, AdamW), its prefill and 8 greedy decode
-    steps and zamba2-2.7b's prefill at 2 repeats, each on DTensor params
-    inside ``logical_rules`` and unsharded on the same params and inputs:
-    the differences and both runs' kernel launches go to ``out``."""
+    step (4 x 2048, 16 layers, AdamW), the same step of its optimized
+    config (fused QKV and gate/up; ``seq_parallel`` places k/v on their
+    sequence, so the flash route gathers them), its prefill and 8 greedy
+    decode steps and zamba2-2.7b's prefill at 2 repeats, each on DTensor
+    params inside ``logical_rules`` and unsharded on the same params and
+    inputs: the differences and both runs' kernel launches go to
+    ``out``."""
     global torch  # a spawned child imports this script without torch
     import torch
     import torch.distributed as dist
@@ -4643,31 +4836,42 @@ def _sharded_checks(out):
             torch.cuda.synchronize()
             return got, _launch_counts(), time.perf_counter() - t
 
-        # the training step
-        cfg = published_config(TRAIN_ARCH, _widths(TRAIN_ARCH))
-        params = _params(cfg)
-        batch, specs = inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, "train")
-        opt = make_optimizer("adamw", **TRAIN_OPT)
-        ref = tree_map(lambda p: p.detach().clone().requires_grad_(True),
-                       params)
-        (ref, _, m_u), n_u, s_u = run(lambda: make_train_step(cfg, opt)(
-            ref, opt.init(ref), batch), "unsharded")
-        sp = sharding.shard_params(params, cfg, mesh)
-        del params
-        with logical_rules(mesh, make_rules(cfg, mesh, TRAIN_BATCH)):
-            (sp, _, m_s), n_s, s_s = run(lambda: make_train_step(cfg, opt)(
-                sp, opt.init(sp), placed(batch, specs)), "sharded")
-        leaves = [rel(a.full_tensor(), b) for a, b in zip(
-            tree_leaves(sp), tree_leaves(ref))]
-        res["train"] = {
-            "loss": [float(m_u["loss"]), float(m_s["loss"].full_tensor())],
-            "leaf_rel_l2_max": max(leaves),
-            "leaves_bit_equal": sum(r == 0.0 for r in leaves),
-            "leaves": len(leaves), "launches": [n_u, n_s],
-            "seconds": [s_u, s_s]}
-        del sp, ref
-        gc.collect()
-        torch.cuda.empty_cache()
+        # the training step, of the published config and of the
+        # optimized one
+        def train(cfg):
+            params = _params(cfg)
+            batch, specs = inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, "train")
+            opt = make_optimizer("adamw", **TRAIN_OPT)
+            ref = tree_map(lambda p: p.detach().clone().requires_grad_(
+                True), params)
+            (ref, _, m_u), n_u, s_u = run(lambda: make_train_step(cfg, opt)(
+                ref, opt.init(ref), batch), "unsharded")
+            sp = sharding.shard_params(params, cfg, mesh)
+            del params
+            rules = make_rules(cfg, mesh, TRAIN_BATCH)
+            with logical_rules(mesh, rules):
+                (sp, _, m_s), n_s, s_s = run(
+                    lambda: make_train_step(cfg, opt)(
+                        sp, opt.init(sp), placed(batch, specs)), "sharded")
+            leaves = [rel(a.full_tensor(), b) for a, b in zip(
+                tree_leaves(sp), tree_leaves(ref))]
+            got = {"loss": [float(m_u["loss"]),
+                            float(m_s["loss"].full_tensor())],
+                   "leaf_rel_l2_max": max(leaves),
+                   "leaves_bit_equal": sum(r == 0.0 for r in leaves),
+                   "leaves": len(leaves), "launches": [n_u, n_s],
+                   "seconds": [s_u, s_s], "seq_rule": rules["seq"],
+                   "fused": [k for k in ("fuse_qkv", "fuse_glu")
+                             if getattr(cfg, k)]}
+            del sp, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            return got
+
+        res["train"] = train(published_config(TRAIN_ARCH,
+                                              _widths(TRAIN_ARCH)))
+        from repro_torch.configs.optimized import optimized_config
+        res["train_optimized"] = train(optimized_config(TRAIN_ARCH))
 
         # serving: prefill and greedy decode steps
         def serve(arch, layers, steps):
@@ -4739,10 +4943,12 @@ def _sharded_dryrun(out):
     recs = []
     d = ROOT / "build" / "dryrun_torch" / "chip_smoke"
     d.mkdir(parents=True, exist_ok=True)
-    for arch, shape, mesh in SHARDED_DRYRUN:
+    for arch, shape, mesh, optimized in SHARDED_DRYRUN:
         t = time.perf_counter()
-        rec = dryrun.run_cell(arch, shape, mesh, d, force=True)
+        rec = dryrun.run_cell(arch, shape, mesh, d, force=True,
+                              optimized=optimized)
         rec["seconds"] = time.perf_counter() - t
+        rec["optimized"] = optimized
         recs.append(rec)
     release()
     out.put({"records": recs, "seconds": time.perf_counter() - t0})
@@ -4783,13 +4989,19 @@ def run_sharded():
         raise AssertionError(f"phase 5: a child failed (exit codes "
                              f"{[pr.exitcode for pr in procs]})")
     print("sharded step on the card:", json.dumps(a, default=str))
-    tr = a["train"]
-    lu, ls = tr["loss"]
-    if not (abs(lu - ls) <= SHARDED_REL_L2 * abs(lu)
-            and tr["leaf_rel_l2_max"] <= SHARDED_REL_L2):
-        raise AssertionError(f"sharded training step: loss {ls} against "
-                             f"{lu}, leaves up to {tr['leaf_rel_l2_max']}")
-    for key in ("train", "llama_serve", "zamba2_prefill"):
+    for key in ("train", "train_optimized"):
+        tr = a[key]
+        lu, ls = tr["loss"]
+        if not (abs(lu - ls) <= SHARDED_REL_L2 * abs(lu)
+                and tr["leaf_rel_l2_max"] <= SHARDED_REL_L2):
+            raise AssertionError(f"sharded {key}: loss {ls} against {lu}, "
+                                 f"leaves up to {tr['leaf_rel_l2_max']}")
+    if a["train_optimized"]["seq_rule"] != "model" or len(
+            a["train_optimized"]["fused"]) != 2:
+        raise AssertionError(f"the optimized step ran "
+                             f"{a['train_optimized']}")
+    for key in ("train", "train_optimized", "llama_serve",
+                "zamba2_prefill"):
         n_u, n_s = a[key]["launches"]
         if n_u != n_s or not any(n_s.values()):
             raise AssertionError(f"sharded {key}: launches {n_s}, "
@@ -4803,7 +5015,8 @@ def run_sharded():
         r = rec.get("roofline", {})
         full = rec.get("full", {})
         mem = full.get("memory", {})
-        print(f"dry-run {rec['arch']} {rec['shape']} {rec['mesh']}: "
+        print(f"dry-run {rec['arch']} {rec['shape']} {rec['mesh']}"
+              f"{'+OPT' if rec['optimized'] else ''}: "
               f"{rec['status']} {rec.get('error', '')}; args "
               f"{mem.get('argument_bytes_per_dev')} B, saved "
               f"{mem.get('saved_bytes_per_dev')} B a device; flops "
@@ -5009,7 +5222,7 @@ def main(argv=()) -> int:
     for arch, widths, layers in SLICES:
         if arch == MUSIC_ARCH:
             launches[arch], rms_calls[arch] = run_codebook_slice(
-                arch, widths, card)
+                arch, widths, card, layers)
         elif arch == VISION:
             launches[arch], rms_calls[arch] = run_vision_slice(
                 arch, widths, layers, card)

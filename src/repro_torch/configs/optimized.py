@@ -32,8 +32,10 @@ _OVERRIDES: dict[str, dict] = {
 }
 
 
-def optimized_config(name: str):
-    cfg = configs.get_config(name)
+def optimized_config(name: str, smoke: bool = False):
+    """The optimized config of ``name``; with ``smoke``, the same
+    overrides on its smoke config (for tests at a small size)."""
+    cfg = configs.get_config(name, smoke=smoke)
     over = dict(_OVERRIDES[configs.canonical(name)])
     gsize = over.pop("_moe_group_size", None)
     if gsize is not None:

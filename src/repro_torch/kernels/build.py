@@ -63,10 +63,10 @@ SIGNATURES = {
                                 _P]},
     "decode_attention": {
         # q, k, v, lengths, o, partials (n_split > 1: fp32 scratch; else
-        # null), dtype, B, T, H, KV, HD, window, scale, softcap, n_split,
-        # stream
-        "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _F, _I, _P],
+        # null), lse ((B, H) fp32, or null), dtype, B, T, H, KV, HD,
+        # window, scale, softcap, n_split, stream
+        "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _F, _I, _P],
         # dtype, HD, G: 1 where decode_attention_fwd launches, else 0
         "decode_attention_built": [_I, _I, _I]},
     "mamba_chunk_scan": {

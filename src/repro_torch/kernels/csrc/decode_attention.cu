@@ -9,7 +9,12 @@
 // out = acc / max(l, 1e-30) in the input dtype.  A sequence with
 // lengths[b] == 0 gets 0, as _dec_kernel gives it; the oracle
 // (kernels/ref.py) gives the mean of V there.  The model never passes a
-// length of 0.
+// length of 0 to the whole cache; a shard of a cache split over its
+// sequence (kernels/sharded.py) gets such rows where its positions lie
+// past a sequence's length or before its window.  With a non-null lse the
+// kernel also writes each (batch, head) row's fp32 log-sum-exp m + log l,
+// and -inf for a row with no live key, so that merging the shards'
+// outputs by their log-sum-exps gives that shard weight 0.
 //
 // What bounds it on the H100: the bytes of the cache.  Each cached key and
 // value is read once and used for 4*G FLOPs per element pair, about
@@ -35,6 +40,9 @@
 //    fp32 partial (m, l, acc) to a scratch buffer and a second small
 //    kernel merges the partials of each (batch, head) in split order, so
 //    the result is bit-equal from call to call; no CTA waits on another.
+//    Whichever writes the output writes the log-sum-exp beside it when it
+//    is asked for: a null test at run time, no template axis, so the
+//    instances and the build stay as they were.
 //    A split with no live key (past len, or before len - window) leaves
 //    m = -inf, l = 0, acc = 0, and the merge gives it weight 0 without
 //    forming exp(-inf - (-inf)).
@@ -90,18 +98,21 @@ cudaError_t launch_hd(int HD, int G, const Args& a) {
 // Returns the cudaError_t of the launches (0 on success).  The caller has
 // checked shapes, dtypes, contiguity and 16-byte alignment; lengths is an
 // int32 device array of B entries; with n_split > 1, part is fp32 scratch
-// of n_split * B * H * (HD + 2) floats (null with one split).
+// of n_split * B * H * (HD + 2) floats (null with one split); lse is null
+// or a (B, H) fp32 array for the rows' log-sum-exps.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
-                                    void* o, void* part, int dtype, int B,
-                                    int T_len, int H, int KV, int HD,
-                                    int window, float scale, float softcap,
-                                    int n_split, void* stream) {
+                                    void* o, void* part, void* lse,
+                                    int dtype, int B, int T_len, int H,
+                                    int KV, int HD, int window, float scale,
+                                    float softcap, int n_split,
+                                    void* stream) {
   if (KV < 1 || H % KV || n_split < 1 || (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lengths), o,
-               static_cast<float*>(part), B, T_len, KV, window, n_split,
-               scale, softcap, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(part), static_cast<float*>(lse), B,
+               T_len, KV, window, n_split, scale, softcap,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == DTYPE_F32) return (int)launch_hd<float>(HD, H / KV, a);
   if (dtype == DTYPE_BF16)
     return (int)launch_hd<__nv_bfloat16>(HD, H / KV, a);

@@ -37,6 +37,7 @@ struct Args {
   const int* lengths;
   void* o;
   float* part;  // n_split > 1: pm, pl, pacc one after the other
+  float* lse;   // null, or (B, H): m + log l, -inf for a row with no live key
   int B, T_len, KV, window, n_split;
   float scale, softcap;
   cudaStream_t stream;

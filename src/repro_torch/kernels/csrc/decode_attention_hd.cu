@@ -23,14 +23,17 @@ constexpr size_t smem_bytes() {
 }
 
 // One split of one (KV head, batch).  With o set (one split) it writes the
-// output; else its partial (m, l, acc) goes to pm, pl, pacc, indexed
-// [split][batch * H + head] (pacc with a trailing head dim).
+// output, and with lse set the row's log-sum-exp m + log l (-inf where no
+// key is live, whose output is 0); else its partial (m, l, acc) goes to
+// pm, pl, pacc, indexed [split][batch * H + head] (pacc with a trailing
+// head dim).
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ o, float* __restrict__ pm,
-              float* __restrict__ pl, float* __restrict__ pacc, int T_len,
+              T* __restrict__ o, float* __restrict__ lse,
+              float* __restrict__ pm, float* __restrict__ pl,
+              float* __restrict__ pacc, int T_len,
               int KV, int window, float scale, float softcap,
               int split_len) {
   using L = PvLayout<T, HD, G>;
@@ -57,9 +60,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < G * HD; i += THREADS) sQ[i] = to_float(qb[i]);
 
-  // live positions of this split: [lo, hi), possibly empty
-  const int len = min(max(lengths[b], 0), T_len);
-  const int lo = max(window > 0 ? max(0, len - window) : 0,
+  // live positions of this split: [lo, hi), possibly empty.  A length
+  // past T_len (a shard of a cache split over its sequence, lengths
+  // relative to its first position) still places the window's start
+  const int raw = max(lengths[b], 0), len = min(raw, T_len);
+  const int lo = max(window > 0 ? max(0, raw - window) : 0,
                      split * split_len);
   const int hi = min(len, (split + 1) * split_len);
   __syncthreads();
@@ -174,6 +179,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (o != nullptr) {
       ob[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[(long long)b * H + (long long)kvh * G + g] =
+            lsum > 0.f ? mx + logf(lsum) : -INFINITY;
     } else {
       const long long bh = (long long)split * gridDim.z * H +
                            (long long)b * H + (long long)kvh * G + g;
@@ -187,13 +195,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Merge the n_split partials of each (batch, head) in split order; a split
-// with m = -inf (no live key) has weight 0.  One thread per output element.
+// with m = -inf (no live key) has weight 0.  One thread per output element;
+// with lse set, the first of a row's threads writes its log-sum-exp.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 decode_combine_kernel(const float* __restrict__ pm,
                       const float* __restrict__ pl,
                       const float* __restrict__ pacc, T* __restrict__ o,
-                      int BH, int n_split) {
+                      float* __restrict__ lse, int BH, int n_split) {
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long long)BH * HD) return;
   const int bh = (int)(idx / HD), d = (int)(idx % HD);
@@ -208,6 +217,8 @@ decode_combine_kernel(const float* __restrict__ pm,
     a += pacc[((long long)s * BH + bh) * HD + d] * f;
   }
   o[idx] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[bh] = lsum > 0.f ? mx + logf(lsum) : -INFINITY;
 }
 
 template <typename T, int HD, int G>
@@ -229,14 +240,14 @@ cudaError_t launch(const Args& a) {
   kern<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.lengths,
-      a.n_split > 1 ? nullptr : static_cast<T*>(a.o), pm, pl, pacc,
+      a.n_split > 1 ? nullptr : static_cast<T*>(a.o), a.lse, pm, pl, pacc,
       a.T_len, a.KV, a.window, a.scale, a.softcap, split_len);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return e;
   const long long n = (long long)BH * HD;
   decode_combine_kernel<T, HD>
       <<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, a.stream>>>(
-          pm, pl, pacc, static_cast<T*>(a.o), BH, a.n_split);
+          pm, pl, pacc, static_cast<T*>(a.o), a.lse, BH, a.n_split);
   return cudaGetLastError();
 }
 

@@ -50,12 +50,15 @@ def _sm_count(index: int) -> int:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      lengths: torch.Tensor, window: int | None = None,
-                     softcap: float | None = None,
-                     scale: float = 1.0) -> torch.Tensor:
-    """q: (B,1,H,hd); k,v: (B,T,KV,hd); lengths: (B,) int32 -> (B,1,H,hd).
-    Serving only: it has no backward, and raises under autograd.  A
-    sequence with length 0 gets 0, as the Pallas kernel gives it (the
-    oracle, ``ref.decode_attention``, gives the mean of V)."""
+                     softcap: float | None = None, scale: float = 1.0,
+                     with_lse: bool = False):
+    """q: (B,1,H,hd); k,v: (B,T,KV,hd); lengths: (B,) int32 -> (B,1,H,hd),
+    and with ``with_lse`` also each row's fp32 log-sum-exp (B,H) of its
+    scaled (and soft-capped) scores, for merging shards of a cache split
+    over its sequence.  Serving only: it has no backward, and raises under
+    autograd.  A sequence with length 0 (or no live key in the window)
+    gets 0 and a log-sum-exp of -inf, as the Pallas kernel gives it the 0
+    (the oracle, ``ref.decode_attention``, gives the mean of V)."""
     build.check_no_grad(NAME, q, k, v)
     for arg, t in (("q", q), ("k", k), ("v", v)):
         build.check_operand(NAME, arg, t, 4, None if arg == "q" else q.dtype)
@@ -83,16 +86,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # fp32 partials (m, l, acc) of each split, merged by a second kernel
     part = (torch.empty(n * b * h * (hd + 2), dtype=torch.float32,
                         device=q.device) if n > 1 else None)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.entry(NAME, NAME + "_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         b, t, h, kv, hd, int(window or 0), float(scale),
         float(softcap or 0.0), n, stream)
     build.launch_check(NAME, err)
     build.count_launch(decode_attention)
-    return out
+    return (out, lse) if with_lse else out
 
 
 decode_attention.launches = 0

@@ -12,8 +12,8 @@ the kernel does on those shapes:
 * flash forward ``4 B H hd P`` and backward ``10 B H hd P``, P the live
   (query, key) pairs under the causal, window and ``q_offset`` masks (two
   products forward; the backward recomputes the scores and makes four);
-* decode ``4 B H hd T`` (on meta the cache lengths are unknown: every
-  position counts);
+* decode, with or without its log-sum-exp, ``4 B H hd T`` (on meta the
+  cache lengths are unknown: every position counts);
 * rmsnorm ``4 N`` forward and ``8 N`` backward, N the elements of x;
 * SSD forward ``2 B nc (L^2 NS + L^2 NH HD + 2 L NS NH HD)`` over nc
   chunks of L = ``chunk`` (the C B^T products, the intra-chunk mix and
@@ -113,10 +113,30 @@ def _(q, k, v, lengths, window, softcap, scale):
     return torch.empty_like(q)
 
 
-@register_flop_formula(torch.ops.repro_torch.decode)
-def _(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+def _decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     b, _, h, hd = q_shape
     return 4 * b * h * hd * k_shape[1]
+
+
+register_flop_formula(torch.ops.repro_torch.decode)(_decode_flops)
+
+
+@custom_op("repro_torch::decode_lse", mutates_args=())
+def decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lengths: torch.Tensor, window: int | None,
+               softcap: float | None, scale: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    return ref.decode_attention_lse(q, k, v, lengths=lengths, window=window,
+                                    softcap=softcap, scale=scale)
+
+
+@decode_lse.register_fake
+def _(q, k, v, lengths, window, softcap, scale):
+    b, _, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h), dtype=torch.float32)
+
+
+register_flop_formula(torch.ops.repro_torch.decode_lse)(_decode_flops)
 
 
 # --- rmsnorm ---------------------------------------------------------------

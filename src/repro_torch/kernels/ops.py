@@ -195,6 +195,22 @@ def decode_attention(q, k, v, *, lengths, window=None, softcap=None,
                           softcap=softcap, scale=scale)
 
 
+def decode_attention_lse(q, k, v, *, lengths, window=None, softcap=None,
+                         scale=1.0):
+    """Decode with each row's log-sum-exp: (out (B,1,H,hd), lse (B,H)
+    fp32), for merging the shards of a cache split over its sequence (no
+    autograd).  Lengths past T keep the window's start; a row with no live
+    key gives out 0 and lse -inf."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_lse(q, k, v, lengths=lengths,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+    if _fake(q):
+        return meta.decode_lse(q, k, v, lengths, window, softcap, scale)
+    return _decode_kernel(q, k, v, lengths=lengths, window=window,
+                          softcap=softcap, scale=scale, with_lse=True)
+
+
 class _MambaChunkScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, b, c, d, h0, chunk):

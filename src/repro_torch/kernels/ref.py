@@ -182,6 +182,49 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhst,bthd->bshd", p, v)
 
 
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, lengths: torch.Tensor, window: int | None = None,
+                         softcap: float | None = None, scale: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's function with its log-sum-exp: (out (B,1,H,hd)
+    in q's dtype, lse (B,H) fp32).  Positions t < lengths[b] (and within
+    ``window`` of it) are live, lengths taken as given: one past T still
+    places the window's start, as a shard of a cache split over its
+    sequence needs with lengths relative to its first position.  A row
+    with no live key gets out 0 and lse -inf, so that a merge of shards by
+    their log-sum-exps gives it weight 0."""
+    h, t = q.shape[2], k.shape[1]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    ti = torch.arange(t, device=q.device)[None, :]
+    lengths = lengths.to(q.device)
+    valid = ti < lengths[:, None]
+    if window is not None and window > 0:
+        valid &= ti >= (lengths[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)                    # (B,H,1)
+    p = torch.exp(scores - torch.where(torch.isinf(lse), 0.0,
+                                       lse)[..., None])
+    out = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return out.to(q.dtype), lse[..., 0]
+
+
+def merge_attention(outs, lses) -> torch.Tensor:
+    """Attention over a key set from its shards' outputs ``outs`` (each
+    (B,S,H,hd)) and log-sum-exps ``lses`` (each (B,H,S)), in one process:
+    each shard weighted by exp(lse - max lse), fp32.  The sharded route
+    (``sharded._merge``) computes the same with all-reduces over ranks; a
+    shard with lse -inf (no live key) gets weight 0."""
+    lse = torch.stack(lses)
+    top = lse.max(0).values
+    w = torch.exp(lse - top)                               # (n,B,H,S)
+    o = sum(oi.float() * wi.transpose(1, 2)[..., None]
+            for oi, wi in zip(outs, w))
+    return o / w.sum(0).transpose(1, 2)[..., None]
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
             zero_centered: bool = True) -> torch.Tensor:
     """Over the last dim: x * rsqrt(mean(x^2) + eps) * (1 + scale) (or

@@ -15,22 +15,38 @@ hand-written kernel runs on the shard, on the CPU the plain version, on
   replicated (each rank's query rows sit at ``q_offset`` plus its shard's
   start and see the whole K/V).  A k/v gradient that the ranks compute in
   parts comes back ``Partial`` and is summed by DTensor.
+* flash attention over k/v sharded on their sequence (``seq_parallel``'s
+  ``seq`` rule at the k/v hint sites).  A causal, windowed or
+  differentiated call gathers k and v over the mesh dims that shard their
+  sequence, as XLA does for JAX's ``pallas_call``, and then takes one of
+  the layouts above: a causal query shard must see every key before it,
+  which lie on other ranks, and its window may cross a shard boundary.
+  The gather is a DTensor redistribute, so autograd returns dK and dV
+  to k/v's placement as a reduce-scatter of the ranks' partial sums.
+  Non-causal attention without gradients (cross-attention decoding its
+  image cache) does not gather: each rank attends to its keys with the
+  forward kernel, which also returns the log-sum-exp, and three
+  all-reduces a dim merge the shards (the query is first gathered over
+  those dims).
 * rmsnorm: any layout that keeps the last dim whole, with the scale
   replicated (its gradient is summed over the sharded rows).
 * decode attention: as flash for batch and heads; a cache sharded over its
-  sequence (the flash-decoding layout of ``cache_spec``) is refused on the
-  card, whose decode kernel returns no log-sum-exp to merge the shards'
-  partial softmaxes; on the CPU and on ``meta`` the plain version computes
-  each shard's output and log-sum-exp and three all-reduces over that
-  dim merge them (the query, one token, is first gathered over it).
+  sequence (the flash-decoding layout of ``cache_spec``) is not gathered:
+  the query (one token) is gathered over those dims, each rank runs the
+  decode kernel on its positions with lengths made relative to its shard
+  and the kernel's log-sum-exp output (``ops.decode_attention_lse``; the
+  plain version on the CPU, the fake on ``meta``), and the shards merge as
+  the image cache's do.  A shard with no live key (past a sequence's
+  length, or before its window) has log-sum-exp -inf and weight 0.
 * the SSD scan: x batch- or head-sharded; dt, a, d follow the heads; B, C
   (shared by the heads) replicated, their gradients summed.
 
-Any other layout raises ``NotImplementedError``: the route never gathers
-a sharded operand to make the op's work fit.  An input that is
-``Partial`` (an unreduced sum, such as a row-parallel matmul's output) is
-reduced first, an all-reduce the op's value needs in any layout.  Outputs
-come back as DTensors in the query's (or x's) placements.
+Any other layout raises ``NotImplementedError``: beyond k/v's sequence
+above, the route gathers no sharded operand to make the op's work fit.
+An input that is ``Partial`` (an unreduced sum, such as a row-parallel
+matmul's output) is reduced first, an all-reduce the op's value needs in
+any layout.  Outputs come back as DTensors in the query's (or x's)
+placements.
 """
 from __future__ import annotations
 
@@ -152,9 +168,14 @@ def flash_attention(fn, q, k, v, *, causal, window, softcap, scale,
         _refuse(op, f"k placed {k.placements}, v {v.placements}")
     seq_dims = [i for i, p in enumerate(k.placements) if p == Shard(1)]
     if seq_dims:
-        return _flash_over_key_shards(q, k, v, seq_dims, causal=causal,
-                                      window=window, softcap=softcap,
-                                      scale=scale, q_offset=q_offset)
+        from repro_torch.kernels import ops
+        if not (causal or window or ops._records(q, k, v)):
+            return _flash_over_key_shards(q, k, v, seq_dims, softcap=softcap,
+                                          scale=scale, q_offset=q_offset)
+        # every key a causal (or windowed) query shard sees, and dK, dV
+        # back as a reduce-scatter: an all-gather over k/v's sequence dims
+        k = _to(k, _unsharded(k, seq_dims))
+        v = _to(v, _unsharded(v, seq_dims))
     grads = _attention_layout(op, q.placements, k.placements, decode=False)
     lo, hi = _kv_slice(op, q, k)
     q_start = q_offset + _offset(q, 1)
@@ -173,20 +194,14 @@ def flash_attention(fn, q, k, v, *, causal, window, softcap, scale,
                      device_mesh=mesh)(q, k, v)
 
 
-def _flash_over_key_shards(q, k, v, seq_dims, *, causal, window, softcap,
-                           scale, q_offset):
-    """Non-causal attention (cross-attention decoding its image cache)
-    over k/v sharded on their sequence: each rank attends to its keys with
-    the forward kernel, which also returns the log-sum-exp, and
-    :func:`_merge` combines the shards.  The query is gathered over those
-    dims first; no gradient."""
+def _flash_over_key_shards(q, k, v, seq_dims, *, softcap, scale, q_offset):
+    """Non-causal attention without gradients (cross-attention decoding
+    its image cache) over k/v sharded on their sequence: each rank attends
+    to its keys with the forward kernel, which also returns the
+    log-sum-exp, and :func:`_merge` combines the shards.  The query is
+    gathered over those dims first."""
     op = "flash_attention"
     from repro_torch.kernels import ops
-    if causal or window or torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        _refuse(op, "k/v are sharded over their sequence, which the route "
-                    "merges only for non-causal attention without "
-                    "gradients")
     mesh = q.device_mesh
     q = _to(q, _unsharded(q, seq_dims))
     _attention_layout(op, q.placements, _unsharded(k, seq_dims),
@@ -234,10 +249,6 @@ def decode_attention(fn, q, k, v, *, lengths, window, softcap, scale):
         _refuse(op, f"k placed {k.placements}, v {v.placements}")
     seq_dims = [i for i, p in enumerate(k.placements) if p == Shard(1)]
     if seq_dims:
-        if q.device_mesh.device_type == "cuda" and not q.to_local().is_meta:
-            _refuse(op, "the cache is sharded over its sequence, and the "
-                        "decode kernel returns no log-sum-exp to merge the "
-                        "shards' partial softmaxes")
         # the query (one token) whole over the cache's sequence dims
         q = _to(q, _unsharded(q, seq_dims))
     _attention_layout(op, q.placements, _unsharded(k, seq_dims),
@@ -263,39 +274,19 @@ def decode_attention(fn, q, k, v, *, lengths, window, softcap, scale):
                          device_mesh=mesh)(q, k, v, lengths)
 
     def merged(ql, kl, vl, ll):
+        from repro_torch.kernels import ops
         if not whole:
             kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
-        o, lse = _decode_partial(ql, kl, vl, ll - t0, window=window,
-                                 softcap=softcap, scale=scale)
-        # (B,H,1) lse, (B,1,H,hd) o: merged as a one-row attention
-        return _merge(o, lse, seq_dims, mesh).to(ql.dtype)
+        o, lse = ops.decode_attention_lse(
+            ql, kl, vl, lengths=(ll - t0).to(torch.int32), window=window,
+            softcap=softcap, scale=scale)
+        # (B,H) lse, (B,1,H,hd) o: merged as a one-row attention
+        return _merge(o, lse[..., None], seq_dims, mesh).to(ql.dtype)
 
     return local_map(merged, out_placements=list(q.placements),
                      in_placements=(q.placements, k.placements,
                                     v.placements, lengths.placements),
                      device_mesh=mesh)(q, k, v, lengths)
-
-
-def _decode_partial(q, k, v, lengths, *, window, softcap, scale):
-    """The plain decode over one shard of the cache's sequence: (out
-    (B,1,H,hd) fp32, lse (B,H,1) fp32), lengths relative to the shard's
-    first position.  A shard with no live key gives lse -inf and out 0."""
-    h, t = q.shape[2], k.shape[1]
-    g = h // k.shape[2]
-    k = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
-    v = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-    scores = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
-    if softcap:
-        scores = softcap * torch.tanh(scores / softcap)
-    ti = torch.arange(t, device=q.device)[None, :]
-    valid = ti < lengths[:, None]
-    if window is not None and window > 0:
-        valid &= ti >= (lengths[:, None] - window)
-    scores = torch.where(valid[:, None, None, :], scores, float("-inf"))
-    lse = torch.logsumexp(scores, dim=-1)                    # (B,H,1)
-    p = torch.exp(scores - torch.where(torch.isinf(lse), 0.0,
-                                       lse)[..., None])
-    return torch.einsum("bhst,bthd->bshd", p, v.float()), lse
 
 
 def mamba_chunk_scan(fn, x, dt, a, b, c, d, *, chunk, h0):

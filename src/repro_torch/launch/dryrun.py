@@ -210,9 +210,12 @@ def _remat_inputs_bytes(cfg, case, mesh) -> int:
     return repeats * x * dtype_named(cfg.dtype).itemsize
 
 
-def measure_cell(cfg, case, mesh) -> dict:
+def measure_cell(cfg, case, mesh, rule_overrides=None) -> dict:
     """Run the cell's step once; per-device counts (JAX's
-    ``compile_cell``)."""
+    ``compile_cell``).  ``rule_overrides`` update the logical rules of
+    ``make_rules`` (the hill-climb's ``--rule``)."""
+    rules = make_rules(cfg, mesh, case.global_batch)
+    rules.update(rule_overrides or {})
     fn, args, kinds = build(cfg, case, mesh)
     arg_bytes = {k: sum(_nbytes(t) for t in tree_leaves(v))
                  for k, v in kinds.items()}
@@ -220,8 +223,7 @@ def measure_cell(cfg, case, mesh) -> dict:
     saved = SavedBytes(set().union(*(_storages(v)
                                       for v in kinds.values())))
     t0 = time.time()
-    with logical_rules(mesh, make_rules(cfg, mesh, case.global_batch)), \
-            ops.fake_kernels(), counter, saved:
+    with logical_rules(mesh, rules), ops.fake_kernels(), counter, saved:
         out = fn(*args)
     step_s = time.time() - t0
     inputs = set().union(*(_storages(v) for v in kinds.values()))
@@ -274,8 +276,9 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: pathlib.Path,
              optimized: bool = False, device=None, smoke: bool = False,
              mesh=None) -> dict:
     """One cell's record, written to ``out_dir`` (JAX's keys).  ``smoke``
-    and ``mesh`` (a mesh to use in place of ``mesh_name``'s production
-    one) are for tests on small configs."""
+    (the smoke config, or with ``optimized`` the optimized overrides on
+    it) and ``mesh`` (a mesh to use in place of ``mesh_name``'s
+    production one) are for tests on small configs."""
     suffix = "_opt" if optimized else ""
     out_path = out_dir / (f"{configs.canonical(arch)}__{shape}"
                           f"__{mesh_name}{suffix}.json")
@@ -285,7 +288,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: pathlib.Path,
         return rec
     if optimized:
         from repro_torch.configs.optimized import optimized_config
-        cfg = optimized_config(arch)
+        cfg = optimized_config(arch, smoke=smoke)
     else:
         cfg = configs.get_config(arch, smoke=smoke)
     case = SHAPE_CASES[shape]

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.models.config import LayerSpec, ModelConfig, dtype_of
-from repro_torch.parallel.annotate import hint, local_matmul
+from repro_torch.parallel.annotate import hint, local_matmul, matmul
 
 Params = Any
 
@@ -82,12 +82,13 @@ def apply_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in params:  # one projection matmul instead of three
-        q, k, v = torch.split(x @ hint(params["wqkv"], "wt_d", "heads_out"),
-                              [h * hd, kv * hd, kv * hd], dim=-1)
+        q, k, v = torch.split(
+            matmul(x, hint(params["wqkv"], "wt_d", "heads_out")),
+            [h * hd, kv * hd, kv * hd], dim=-1)
     else:
-        q = x @ hint(params["wq"], "wt_d", "heads_out")
-        k = x @ hint(params["wk"], "wt_d", "kv_out")
-        v = x @ hint(params["wv"], "wt_d", "kv_out")
+        q = matmul(x, hint(params["wq"], "wt_d", "heads_out"))
+        k = matmul(x, hint(params["wk"], "wt_d", "kv_out"))
+        v = matmul(x, hint(params["wv"], "wt_d", "kv_out"))
     q = hint(q.reshape(b, s, h, hd), "batch", "attn_seq", "heads", None)
     k = hint(k.reshape(b, s, kv, hd), "batch", "seq", "kv_heads", None)
     v = hint(v.reshape(b, s, kv, hd), "batch", "seq", "kv_heads", None)
@@ -440,7 +441,8 @@ def apply_cross_attn(params: Params, cfg: ModelConfig, spec: LayerSpec,
     dtype: the flash kernel takes one dtype."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ hint(params["wq"], "wt_d", "heads_out")).reshape(b, s, h, hd)
+    q = matmul(x, hint(params["wq"], "wt_d", "heads_out")).reshape(
+        b, s, h, hd)
     q = hint(q, "batch", "attn_seq", "heads", None)
     q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
 

@@ -6,10 +6,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import ACTIVATIONS, dense_init
 from repro_torch.models.config import ModelConfig, dtype_of
-from repro_torch.parallel.annotate import hint
+from repro_torch.parallel.annotate import gather_for, hint, matmul
 
 Params = Any
 
@@ -39,11 +40,22 @@ def apply_mlp(params: Params, cfg: ModelConfig,
     # and the TP layout of the hidden dim
     wo = hint(params["wo"], "ffn", "wt_d")
     if "wgu" in params:  # fused gate+up: one matmul
-        wgu = hint(params["wgu"], "wt_d", None, "ffn")
-        gu = (x @ wgu.flatten(1)).unflatten(-1, (2, -1))
+        # a sequence-parallel x takes the weight whole (local_matmul's
+        # gather, made before the flatten)
+        wgu = gather_for(x, hint(params["wgu"], "wt_d", None, "ffn"))
+        if isinstance(wgu, DTensor) and any(p.is_shard(2)
+                                            for p in wgu.placements):
+            # F sharded: (D, 2, F) flattened as (D, F * 2), F outermost,
+            # so a shard of F stays a shard of the product's columns
+            # (flattening (2, F) would gather the weight and repeat the
+            # whole product on every rank of the ffn axis)
+            gu = matmul(x, wgu.transpose(1, 2).flatten(1)).unflatten(
+                -1, (-1, 2)).transpose(-1, -2)
+        else:
+            gu = matmul(x, wgu.flatten(1)).unflatten(-1, (2, -1))
         h = act(gu[..., 0, :]) * gu[..., 1, :]
     else:
-        h = act(x @ hint(params["wi"], "wt_d", "ffn"))
+        h = act(matmul(x, hint(params["wi"], "wt_d", "ffn")))
         if "wu" in params:
-            h = h * (x @ hint(params["wu"], "wt_d", "ffn"))
-    return hint(h, "batch", "seq", "ffn") @ wo
+            h = h * matmul(x, hint(params["wu"], "wt_d", "ffn"))
+    return matmul(hint(h, "batch", "seq", "ffn"), wo)

@@ -34,7 +34,7 @@ from repro_torch.models import blocks
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        rmsnorm_init, soft_cap)
 from repro_torch.models.config import ModelConfig, dtype_named, dtype_of
-from repro_torch.parallel.annotate import hint
+from repro_torch.parallel.annotate import hint, matmul
 
 Params = Any
 
@@ -147,14 +147,14 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
             params["embed"].transpose(1, 2)                  # (K,D,V)
         if is_dtensor(w):  # a product a codebook: the einsum would
             # flatten (K, V) with V sharded, which PyTorch 2.11 refuses
-            logits = torch.stack([x @ w[i] for i in range(w.shape[0])],
-                                 dim=2)
+            logits = torch.stack([matmul(x, w[i])
+                                  for i in range(w.shape[0])], dim=2)
         else:
             logits = torch.einsum("bsd,kdv->bskv", x, w)
     elif "head" in params:
-        logits = torch.matmul(x, params["head"])
+        logits = matmul(x, params["head"])
     else:
-        logits = torch.matmul(x, params["embed"].T)
+        logits = matmul(x, params["embed"].T)
     axes = (("batch", "seq", None, "vocab") if cfg.num_codebooks
             else ("batch", "seq", "vocab"))
     return soft_cap(hint(logits, *axes), cfg.final_softcap or None)

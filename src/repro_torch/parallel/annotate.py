@@ -165,13 +165,19 @@ def local_matmul(x, w):
     """``x @ w`` for DTensors x (..., K) and w (K, N) on each rank's
     shards (``local_map``), where per mesh dim x is sharded on a leading
     dim over a replicated w, or on K against w's K (the output then a
-    partial sum), or replicated against w sharded on N.  DTensor's own
-    matmul flattens x's leading dims, which PyTorch before 2.13 refuses
-    when two of them are sharded (the batch, and the sequence of a
-    query-sharded attention's output)."""
+    partial sum), or replicated against w sharded on N.  Where x is
+    sharded on a leading dim and w on either of its dims (a
+    sequence-parallel activation against a tensor-parallel weight), w is
+    first gathered over that mesh dim, as an FSDP weight is at its use,
+    so the output keeps x's layout, which the hints after it want; w's
+    gradient goes back as a reduce-scatter.  DTensor's own matmul
+    flattens x's leading dims, which PyTorch before 2.13 refuses when a
+    dim after the first is sharded (the sequence of a sequence-parallel
+    activation or of a query-sharded attention's output)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     last = x.ndim - 1
+    w = gather_for(x, w)
     out, gx, gw = [], [], []
     for px, pw in zip(x.placements, w.placements):
         if px.is_shard() and px.dim < last and pw.is_replicate():
@@ -188,6 +194,33 @@ def local_matmul(x, w):
                      in_placements=(tuple(x.placements), tuple(w.placements)),
                      in_grad_placements=(tuple(gx), tuple(gw)),
                      device_mesh=x.device_mesh)(x, w)
+
+
+def gather_for(x, w):
+    """DTensor ``w`` gathered over each mesh dim on which ``x`` is
+    sharded on a leading dim and ``w`` is sharded (what
+    :func:`local_matmul` does first); ``w`` itself otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return w
+    last = x.ndim - 1
+    pls = tuple(Replicate() if px.is_shard() and px.dim < last
+                and pw.is_shard() else pw
+                for px, pw in zip(x.placements, w.placements))
+    return w if pls == tuple(w.placements) else w.redistribute(
+        w.device_mesh, pls)
+
+
+def matmul(x, w):
+    """``x @ w``; by :func:`local_matmul` where both are DTensors and x
+    is sharded on a dim between its first and its last (the sequence
+    under ``seq_parallel``), which PyTorch 2.11's DTensor matmul refuses
+    to flatten."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and isinstance(w, DTensor) and any(
+            p.is_shard() and 0 < p.dim < x.ndim - 1 for p in x.placements):
+        return local_matmul(x, w)
+    return x @ w
 
 
 def make_rules(cfg, mesh, batch: int) -> dict[str, Any]:

@@ -87,10 +87,26 @@ def _local(t):
     return t.to_local() if _is_dt(t) else t
 
 
+# elements of a slice of a leaf whose sum of squares ``global_norm`` takes
+# a slice at a time (1 GiB in fp32): a full-width MoE expert leaf in fp32
+# would be 15 GB (deepseek-v3's 256 x 7168 x 2048).  Apart from
+# ``SLICE_ELEMS``, so the norm's order of sums does not move with it
+NORM_SLICE_ELEMS = 1 << 28
+
+
+def _sum_sq(x) -> torch.Tensor:
+    """The fp32 sum of squares of a leaf, in slices where it is large."""
+    if _is_dt(x) or x.numel() <= NORM_SLICE_ELEMS:
+        return x.float().square().sum()
+    flat = x.reshape(-1)
+    return sum(flat[i:i + NORM_SLICE_ELEMS].float().square().sum()
+               for i in range(0, flat.numel(), NORM_SLICE_ELEMS))
+
+
 def global_norm(tree) -> torch.Tensor:
     """The L2 norm over every leaf; over DTensor leaves each leaf's sum of
     squares is reduced over its shards, and the norm is a plain tensor."""
-    leaves = [x.float().square().sum() for x in tree_leaves(tree)]
+    leaves = [_sum_sq(x) for x in tree_leaves(tree)]
     leaves = [x.full_tensor() if _is_dt(x) else x for x in leaves]
     return torch.stack(leaves).sum().sqrt()
 

@@ -99,6 +99,85 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, t, h, kv, hd, window,
     _close(got, ref.decode_attention(q, k, v, **kw), dtype)
 
 
+# decode shapes for the log-sum-exp output (b, t, h, kv, hd, window, cap):
+# llama3.2-1b, gemma-7b and deepseek-coder-33b's decode steps, and a
+# softcapped window
+DECODE_LSE_CASES = [
+    (8, 1024, 32, 8, 64, None, None),
+    (8, 1024, 16, 16, 256, None, None),
+    (8, 1024, 56, 8, 128, None, None),
+    (3, 700, 32, 16, 128, 256, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kv,hd,window,cap", DECODE_LSE_CASES)
+def test_decode_kernel_lse_matches_plain(cuda, dtype, b, t, h, kv, hd,
+                                         window, cap):
+    """The kernel's log-sum-exp output (with_lse) and its output against
+    ``ref.decode_attention_lse`` at TOL (in bf16 the plain version rounds
+    each score to bf16 before its fp32 sum), and its output bit-equal to
+    the call without it.  A row of length 0 gives lse -inf and output
+    0."""
+    rng = np.random.default_rng(t + hd)
+    q = _randn(rng, (b, 1, h, hd), dtype, cuda)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    lengths = rng.integers(1, t + 1, size=(b,)).astype(np.int32)
+    lengths[0] = 0
+    kw = dict(lengths=torch.from_numpy(lengths).to(cuda), window=window,
+              softcap=cap, scale=hd ** -0.5)
+    out, lse = da.decode_attention(q, k, v, with_lse=True, **kw)
+    plain = da.decode_attention(q, k, v, **kw)
+    want, want_lse = ref.decode_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(out, plain)
+    assert torch.isneginf(lse[0]).all() and not out[0].any()
+    _close(out[1:], want[1:], dtype)
+    _close(lse[1:], want_lse[1:], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("window", [None, 300])
+def test_decode_kernel_shards_merge_to_the_whole(cuda, dtype, shards,
+                                                 window):
+    """llama3.2-1b's decode step (8, 1024, 32, 8, 64) over a cache cut
+    into ``shards`` pieces over its sequence: the kernel with its
+    log-sum-exp on each piece (lengths relative to its first position,
+    one past its end keeping the window's start), merged by
+    ``ref.merge_attention``, against the kernel on the whole cache and the
+    plain version.  Lengths leave the last shard empty for most rows and
+    the window crosses shard boundaries."""
+    b, t, h, kv, hd = 8, 1024, 32, 8, 64
+    rng = np.random.default_rng(shards)
+    q = _randn(rng, (b, 1, h, hd), dtype, cuda)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    n = t // shards
+    lengths = np.asarray([1, 31, n - 1, n, n + 1, n + 150, 2 * n + 7,
+                          t - n - 5], np.int32)
+    kw = dict(window=window, scale=hd ** -0.5)
+    whole = da.decode_attention(q, k, v, lengths=torch.from_numpy(
+        lengths).to(cuda), **kw)
+    outs, lses = [], []
+    for i in range(shards):
+        sl = slice(i * n, (i + 1) * n)
+        o, lse = da.decode_attention(
+            q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+            lengths=torch.from_numpy(lengths - i * n).to(cuda),
+            with_lse=True, **kw)
+        outs.append(o)
+        lses.append(lse[..., None])
+    torch.cuda.synchronize()
+    assert torch.isneginf(lses[-1]).any()
+    merged = ref.merge_attention(outs, lses)
+    _close(merged, whole, dtype)
+    _close(merged, ref.decode_attention(
+        q, k, v, lengths=torch.from_numpy(lengths).to(cuda), **kw), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("n_split", range(1, da.MAX_SPLITS + 1))

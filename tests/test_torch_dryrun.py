@@ -147,6 +147,97 @@ def test_run_cell_smoke_configs_on_a_fake_mesh(arch, tmp_path):
             assert full["memory"]["argument_bytes_by_kind"]["opt_state"] > 0
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_run_cell_optimized_smoke_configs_on_a_fake_mesh(arch, tmp_path):
+    """Every shape of the arch's optimized overrides on its smoke config
+    (``seq_parallel`` for the dense family, musicgen and the VLM: k/v
+    sharded on their sequence and gathered by the flash route) on a (2, 4)
+    fake mesh: status ok (long_500k a skip for full attention), written
+    as an ``_opt`` record with the overrides in the config it ran."""
+    from repro_torch.configs.optimized import _OVERRIDES, optimized_config
+    mesh = _mesh24()
+    cfg = optimized_config(arch, smoke=True)
+    assert cfg.name == tconfigs.get_config(arch, smoke=True).name
+    over = _OVERRIDES[tconfigs.canonical(arch)]
+    assert all(getattr(cfg, k) == v for k, v in over.items()
+               if not k.startswith("_"))
+    for shape in SHAPES:
+        rec = dryrun.run_cell(arch, shape, "host", tmp_path, smoke=True,
+                              optimized=True, mesh=mesh)
+        assert json.loads((tmp_path / f"{tconfigs.canonical(arch)}__"
+                           f"{shape}__host_opt.json").read_text()) == rec
+        if shape == "long_500k" and not cfg.subquadratic:
+            assert rec["status"] == "skip"
+            continue
+        assert rec["status"] == "ok", rec.get("trace")
+        assert rec.keys() == RECORD_KEYS
+        if cfg.seq_parallel and SHAPE_CASES[shape].kind == "train":
+            # the model axis shards k/v's sequence: gathered forward,
+            # reduce-scattered backward
+            counts = rec["full"]["collective_counts"]
+            assert counts.get("all-gather") and counts.get("reduce-scatter")
+
+
+def test_hillclimb_applies_sets_and_rules(tmp_path, capsys):
+    """``repro_torch.launch.hillclimb.main`` on the llama smoke config
+    over the (2, 4) fake mesh with ``--set remat=dots`` and ``--rule
+    seq=model``: a record with JAX's hill-climb keys and the roofline's
+    terms, the override in the config it ran, and the rule reaching the
+    step (the k/v sequence gathered over the model axis)."""
+    from unittest import mock
+
+    from repro_torch.launch import hillclimb
+    seen = {}
+    real = dryrun.measure_cell
+
+    def measure(cfg, case, mesh, rule_overrides=None):
+        seen.update(cfg=cfg, rules=rule_overrides)
+        return real(cfg, case, mesh, rule_overrides)
+
+    with mock.patch.object(dryrun, "measure_cell", measure):
+        rec = hillclimb.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                              "--smoke", "--set", "remat=dots", "--rule",
+                              "seq=model", "--tag", "t"], mesh=_mesh24())
+    assert json.loads(capsys.readouterr().out) == rec
+    assert seen["cfg"].remat == "dots" and rec["config"] == {"remat": "dots"}
+    assert seen["rules"] == {"seq": "model"}
+    assert rec["overrides"] == ["remat=dots"] and rec["rules"] == ["seq=model"]
+    roof = jrl.Roofline(1, 1, 1, 1).to_dict()
+    assert {k for k, v in roof.items() if isinstance(v, float)} <= rec.keys()
+    assert rec["bottleneck"] in ("compute", "memory", "collective")
+    assert rec["n_devices"] == 8 and rec["peak_gb"] > 0
+    assert rec["collectives"].get("all-gather")
+    assert hillclimb.parse_rules(["a=none", "b=data+model", "c=model"]) == {
+        "a": None, "b": ("data", "model"), "c": "model"}
+    cfg = hillclimb.apply_sets(tconfigs.get_config("deepseek-v3-671b",
+                                                   smoke=True),
+                               ["moe.group_size=8", "fuse_glu=1"])
+    assert cfg.moe.group_size == 8 and cfg.fuse_glu is True
+
+
+def test_report_rows_with_opt(tmp_path, capsys):
+    """``repro_torch.launch.report`` over two records ``run_cell`` wrote,
+    one of them ``--optimized``: a row for each in both tables, ``+OPT``
+    and ``(OPTIMIZED)`` on the optimized one, and the H100's constants in
+    the roofline's heading (no TPU's)."""
+    from repro_torch.launch import report
+    mesh = _mesh24()
+    for optimized in (False, True):
+        rec = dryrun.run_cell("llama3.2-1b", "train_4k", "single", tmp_path,
+                              smoke=True, optimized=optimized, mesh=mesh)
+        assert rec["status"] == "ok", rec.get("trace")
+    capsys.readouterr()
+    text = report.main(["--dir", str(tmp_path)])
+    assert capsys.readouterr().out.strip() == text.strip()
+    rows = [ln for ln in text.splitlines() if ln.startswith("| llama3_2_1b")]
+    assert len(rows) == 4
+    assert sum("| single+OPT | ok |" in r for r in rows) == 1
+    assert sum("| single | ok |" in r for r in rows) == 1
+    assert sum("(OPTIMIZED)" in r for r in rows) == 1
+    assert "989 TF bf16, 3.35 TB/s HBM, 50 GB/s link" in text
+    assert "v5e" not in text and "TPU" not in text
+
+
 # (arch, shape): full configs on the production (16, 16) mesh.  Not a
 # prefill cell: its model FLOPs (2 N D) count the head at every position,
 # and prefill computes the logits of the last one only (gemma-7b's

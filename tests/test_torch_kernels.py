@@ -165,6 +165,62 @@ def test_decode_attention_matches_pallas_kernel():
     _close(got, want, "float32")
 
 
+# (b, t, h, kv, hd, window, cap, shards): a cache cut into shards over its
+# sequence; the lengths below leave the last shard empty for some rows,
+# and the windows cross shard boundaries
+DECODE_SHARD_CASES = [
+    (4, 256, 8, 2, 64, None, None, 2),
+    (4, 256, 8, 2, 64, 100, None, 4),
+    (4, 384, 16, 8, 128, 150, 30.0, 4),
+    (4, 256, 7, 1, 128, 70, None, 2),
+]
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd,window,cap,shards", DECODE_SHARD_CASES)
+def test_decode_attention_lse_over_shards_equals_the_whole(b, t, h, kv, hd,
+                                                           window, cap,
+                                                           shards):
+    """The plain decode with its log-sum-exp on each shard of a cache split
+    over its sequence (lengths relative to the shard's first position),
+    merged by ``ref.merge_attention``: equal to the whole cache's plain
+    decode and to JAX's oracle at 2e-5 in fp32.  A shard with no live key
+    (past a row's length, or before its window) gives out 0 and lse
+    -inf."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        11, "float32", (b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd))
+    n = t // shards
+    lengths = np.asarray([1, n - 3, n + 1, t][:b], np.int32)
+    kw = dict(window=window, softcap=cap, scale=1.0 / np.sqrt(hd))
+    whole, whole_lse = ops.decode_attention_lse(
+        qt, kt, vt, lengths=torch.from_numpy(lengths), **kw)
+    outs, lses = [], []
+    for i in range(shards):
+        sl = slice(i * n, (i + 1) * n)
+        o, lse = ops.decode_attention_lse(
+            qt, kt[:, sl], vt[:, sl],
+            lengths=torch.from_numpy(lengths - i * n), **kw)
+        assert o.shape == qt.shape and lse.shape == (b, h)
+        live = (lengths > i * n) & (window is None
+                                    or lengths - window < (i + 1) * n)
+        for r in np.flatnonzero(~live):
+            assert torch.isneginf(lse[r]).all()
+            assert not o[r].any()
+        assert live.any()
+        outs.append(o)
+        lses.append(lse[..., None])
+    assert any(torch.isneginf(x).any() for x in lses)  # a row's empty shard
+    merged = ref.merge_attention(outs, lses)
+    _close(merged, whole, "float32")
+    _close(torch.logsumexp(torch.stack(lses), 0)[..., 0], whole_lse,
+           "float32")
+    _close(whole, ops.decode_attention(qt, kt, vt,
+                                       lengths=torch.from_numpy(lengths),
+                                       **kw), "float32")
+    _close(merged, jref.decode_attention(qj, kj, vj,
+                                         lengths=jnp.asarray(lengths), **kw),
+           "float32")
+
+
 @pytest.mark.parametrize("window", [None, 1536])
 def test_flash_attention_query_block_loop(window):
     """S > BLOCK_THRESHOLD runs the loop over query blocks with the K/V
@@ -468,6 +524,7 @@ def test_decode_wrapper_passes_splits_where_signatures_declare():
         n = da.n_splits(b, kv, t, 132)
         assert len(args) == len(sig) and sig[-2] is ctypes.c_int
         assert args[-2] == n and args[-1] == 7
+        assert args[6] is None  # the lse pointer: none asked for
         if n > 1:
             part.assert_called_once()
             assert part.call_args.args == (n * b * h * (hd + 2),)
@@ -475,6 +532,34 @@ def test_decode_wrapper_passes_splits_where_signatures_declare():
         else:
             part.assert_not_called()
             assert args[5] is None
+
+
+def test_decode_wrapper_passes_lse_when_asked():
+    """With ``with_lse`` the wrapper hands the C entry point a (B, H) fp32
+    array for the log-sum-exps (null otherwise) and returns it beside the
+    output; one launch either way."""
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    calls = []
+    stream = mock.Mock(cuda_stream=7)
+    b, t, h, kv, hd = 3, 512, 8, 2, 64
+    q, k = torch.zeros(b, 1, h, hd), torch.zeros(b, t, kv, hd)
+    with mock.patch.object(build, "entry",
+                           lambda *a: lambda *args: calls.append(args) or 0), \
+            mock.patch.object(build, "check_operand"), \
+            mock.patch.object(da, "_sm_count", return_value=132), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              return_value=stream):
+        n = da.decode_attention.launches
+        out, lse = da.decode_attention(q, k, k, lengths=torch.ones(
+            b, dtype=torch.int32), with_lse=True)
+        assert da.decode_attention.launches == n + 1
+    (args,) = calls
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (b, h) and lse.dtype == torch.float32
+    assert args[6] == lse.data_ptr() and args[4] == out.data_ptr()
+    da.decode_attention.launches = 0
 
 
 @pytest.mark.parametrize("hd,g", [(hd, g) for hd in (32, 64, 80, 128, 256)
@@ -510,7 +595,9 @@ def test_decode_wrapper_refuses_pairs_not_built(hd, g):
             da.decode_attention(q, k, k, lengths=torch.ones(
                 2, dtype=torch.int32))
             (args,) = calls
-            assert args[9:12] == (2 * g, 2, hd)   # H, KV, HD
+            # after q, k, v, lengths, o, partials, lse, dtype, B, T
+            assert args[10:13] == (2 * g, 2, hd)   # H, KV, HD
+            assert args[6] is None                 # no lse asked for
             assert da.decode_attention.launches == n + 1
     da.decode_attention.launches = 0
 

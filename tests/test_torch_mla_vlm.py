@@ -445,3 +445,48 @@ def test_cross_attn_bf16_projects_fp32_embeddings_as_jax():
     tattn.apply_cross_attn(p_t, cfg_t, spec, xt,
                            torch.from_numpy(img).bfloat16(), rounded)
     assert np.mean(rounded["v"].float().numpy() != v_j) > 0.1
+
+
+# tests/test_torch_train.py's tolerances: the loss (as tests/test_models.py)
+# and the updated params
+TRAIN_LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
+TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def test_deepseek_v3_trainer_step_matches_jax():
+    """deepseek-v3's smoke config (MLA, a dense layer and two MoE layers)
+    takes one Adafactor step through the port's ``Trainer`` and through
+    the JAX package's, from the same params (router biases set nonzero)
+    on the same synthetic batch: the loss and every updated param and
+    every leaf of the optimizer state as JAX has them."""
+    from repro.train import optimizer as jopt
+    from repro.train.trainer import Trainer as JTrainer
+    from repro.train.trainer import TrainerConfig as JTrainerConfig
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    arch = "deepseek-v3-671b"
+    kw = dict(steps=1, global_batch=2, seq_len=16, log_every=10**9,
+              eval_every=10**9)
+    jt = JTrainer(jconfigs.get_config(arch, smoke=True), JTrainerConfig(**kw),
+                  optimizer=jopt.make_optimizer("adafactor"))
+    jt.params = _live(jt.params, 1)
+    jt.opt_state = jt.opt.init(jt.params)
+    tt = Trainer(tconfigs.get_config(arch, smoke=True), TrainerConfig(**kw),
+                 optimizer=topt.make_optimizer("adafactor"), device="cpu")
+    tt.params = tree_map(lambda a: a.requires_grad_(True),
+                         _bridged(jt.params))
+    tt.opt_state = tt.opt.init(tt.params)
+    (want,), (got,) = jt.train(), tt.train()
+    assert got["step"] == want["step"] == 1
+    np.testing.assert_allclose(got["loss"], want["loss"], **TRAIN_LOSS_TOL)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=1e-4)
+    mine = bridge.params_to_numpy({"p": tt.params, "s": tt.opt_state})
+    theirs = jax.tree.map(np.asarray, {"p": jt.params, "s": jt.opt_state})
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for (path, a), w in zip(jax.tree_util.tree_leaves_with_path(mine),
+                            jax.tree.leaves(theirs)):
+        assert a.shape == w.shape, jax.tree_util.keystr(path)
+        np.testing.assert_allclose(a, w, **TRAIN_PARAM_TOL,
+                                   err_msg=jax.tree_util.keystr(path))

@@ -5,8 +5,12 @@ param specs, the batch sharded by the input specs, the step inside
 port step (loss and gradients within ``SHARDED_REL_L2``, each leaf's
 update within ``STEP_UPDATE_REL_L2``) and the JAX step (the suite's
 tolerances), for llama3.2-1b, zamba2-2.7b (``mamba_heads`` over the model
-axis) and grok-1-314b (an MoE whose experts the rules put on the model
-axis).  The ranks run ``torch_parallel_tasks.sharded_steps``."""
+axis), grok-1-314b (an MoE whose experts the rules put on the model
+axis) and llama3.2-1b's optimized overrides on its smoke config
+("+opt": fused QKV and gate/up, ``seq_parallel``, so k/v are sharded on
+their sequence and the flash route gathers them).  The ranks run
+``torch_parallel_tasks.sharded_steps``."""
+import dataclasses
 import pickle
 
 import numpy as np
@@ -18,16 +22,18 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.configs.optimized import _OVERRIDES as j_overrides  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jstep  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.configs.optimized import optimized_config as t_optimized  # noqa: E402,E501
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import train_step as tstep  # noqa: E402
 
-ARCHS = ["llama3.2-1b", "zamba2-2.7b", "grok-1-314b"]
+ARCHS = ["llama3.2-1b", "zamba2-2.7b", "grok-1-314b", "llama3.2-1b+opt"]
 OPT_KW = dict(lr=1e-2, warmup=3, decay_steps=10, weight_decay=0.1,
               grad_clip=0.5)                     # tests/test_torch_train.py
 LOSS_TOL = dict(rtol=2e-4, atol=2e-4)            # against JAX
@@ -58,16 +64,24 @@ def runs(tmp_path_factory):
     before)}, the 8 ranks spawned once for all three."""
     tmp = tmp_path_factory.mktemp("parallel")
     jobs, local = {}, {}
-    for arch in ARCHS:
+    for name in ARCHS:
+        arch, optimized = name.removesuffix("+opt"), name.endswith("+opt")
         cfg_j = jconfigs.get_config(arch, smoke=True)
         cfg_t = tconfigs.get_config(arch, smoke=True)
+        if optimized:  # JAX's overrides on the smoke config
+            cfg_j = dataclasses.replace(cfg_j, **{
+                k: v for k, v in j_overrides[jconfigs.canonical(arch)].items()
+                if not k.startswith("_")})
+            cfg_t = t_optimized(arch, smoke=True)
+            assert cfg_t.seq_parallel and cfg_t.fuse_qkv and cfg_t.fuse_glu
         pj = jax.jit(jmodel.init_params, static_argnums=1)(
             jax.random.PRNGKey(0), cfg_j)
         p_np = jax.tree.map(np.asarray, pj)
         batch = _batch(6, 4, 16, cfg_t.vocab_size)
-        jobs[arch] = {"arch": arch, "params": bridge.params_to_numpy(
-            bridge.params_from_numpy(p_np, "cpu")), "batch": batch,
-            "opt": OPT_KW}
+        jobs[name] = {"arch": arch, "optimized": optimized,
+                      "params": bridge.params_to_numpy(
+                          bridge.params_from_numpy(p_np, "cpu")),
+                      "batch": batch, "opt": OPT_KW}
         opt_j = jopt.make_optimizer("adamw", **OPT_KW)
         pj2, _, mj = jax.jit(jstep.make_train_step(cfg_j, opt_j))(
             pj, opt_j.init(pj), {k: jnp.asarray(v) for k, v in batch.items()})
@@ -79,7 +93,7 @@ def runs(tmp_path_factory):
         pt, _, mt = tstep.make_train_step(cfg_t, opt_t)(
             pt, opt_t.init(pt),
             {k: torch.from_numpy(v) for k, v in batch.items()})
-        local[arch] = ({"params": bridge.params_to_numpy(pt),
+        local[name] = ({"params": bridge.params_to_numpy(pt),
                         "grads": bridge.params_to_numpy(gt),
                         "loss": float(mt["loss"])},
                        {"params": jax.tree.map(np.asarray, pj2),

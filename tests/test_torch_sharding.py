@@ -247,10 +247,15 @@ def _meta(mesh, shape, placements):
 
 def test_kernel_route_refuses_layouts_that_are_not_local(mesh):
     """The DTensor route runs a kernel on local shards or raises: rmsnorm
-    over a sharded last dim, causal flash over sequence-sharded K/V, and
-    q and k/v sharded on different dims are refused, never gathered."""
+    over a sharded last dim, and q and k/v sharded on different dims, are
+    refused, never gathered.  Causal flash over sequence-sharded K/V is
+    the one layout it gathers (as XLA does for JAX's pallas_call): one
+    all-gather each for k and v over the mesh dim that shards their
+    sequence, the output placed as q, and dK, dV back in k/v's placements
+    through one reduce-scatter each."""
     from torch.distributed.tensor import Replicate, Shard
     from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import Counter
     x = _meta(mesh, (32, 64, 256), (Shard(0), Shard(2)))
     sc = _meta(mesh, (256,), (Replicate(), Replicate()))
     with pytest.raises(NotImplementedError, match="last"):
@@ -258,8 +263,21 @@ def test_kernel_route_refuses_layouts_that_are_not_local(mesh):
     q = _meta(mesh, (16, 64, 32, 64), (Shard(0), Shard(2)))
     kv = _meta(mesh, (16, 64, 16, 64), (Shard(0), Shard(1)))
     with ops.fake_kernels():
-        with pytest.raises(NotImplementedError, match="sequence"):
-            ops.flash_attention(q, kv, kv, causal=True)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, kv, kv))
+        with Counter() as seen:
+            out = ops.flash_attention(qg, kg, vg, causal=True)
+            assert seen.stats.counts == {"all-gather": 2}
+            assert tuple(out.placements) == (Shard(0), Shard(2))
+            assert out.to_local().shape == (1, 64, 2, 64)
+            out.sum().backward()
+        assert seen.stats.counts == {"all-gather": 2, "reduce-scatter": 2}
+        # each gathers a (1, 64, 16, 64) fp32 result over 16 ranks and
+        # sends 15/16 of it (the ring factor)
+        assert seen.stats.bytes_by_op["all-gather"] == \
+            2 * 15 / 16 * (64 * 16 * 64 * 4)
+        for t in (kg, vg):
+            assert tuple(t.grad.placements) == (Shard(0), Shard(1))
+            assert t.grad.to_local().shape == (1, 4, 16, 64)
         kb = _meta(mesh, (16, 64, 16, 64), (Shard(2), Shard(0)))
         with pytest.raises(NotImplementedError, match="placed"):
             ops.flash_attention(q, kb, kb, causal=True)

@@ -493,6 +493,25 @@ def test_sliced_update_equals_whole_leaf_update(name, monkeypatch):
             assert torch.equal(a, w)
 
 
+def test_global_norm_sums_a_large_leaf_in_slices(monkeypatch):
+    """A leaf past ``NORM_SLICE_ELEMS`` has its sum of squares taken a
+    slice at a time (no fp32 copy of the whole leaf): the same norm within
+    1e-6 rel., a small leaf's bit-equal."""
+    rng = np.random.default_rng(10)
+    tree = {"big": torch.from_numpy(rng.standard_normal((5, 7, 33)).astype(
+        np.float32)).to(torch.bfloat16),
+        "small": torch.from_numpy(rng.standard_normal(6).astype(np.float32))}
+    whole = topt.global_norm(tree)
+    monkeypatch.setattr(topt, "NORM_SLICE_ELEMS", 100)
+    sliced = topt.global_norm(tree)
+    want = np.sqrt(sum(np.square(np.asarray(t.float(), np.float64)).sum()
+                       for t in tree.values()))
+    assert abs(float(sliced) - want) <= 1e-6 * want
+    assert abs(float(sliced) - float(whole)) <= 1e-6 * want
+    assert torch.equal(topt.global_norm({"small": tree["small"]}),
+                       tree["small"].square().sum().sqrt())
+
+
 @pytest.mark.parametrize("name", ["adafactor", "lion"])
 def test_optimizer_descends_quadratic(name):
     """tests/test_train_serve_ft.py::test_optimizer_descends_quadratic."""

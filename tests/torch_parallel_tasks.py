@@ -1,6 +1,7 @@
 """The rank function of ``tests/test_torch_parallel.py``: one sharded
-train step a config, on a (2, 4) ``("data", "model")`` mesh of 8 gloo
-ranks.  A spawned worker unpickles the function by reference, so it lives
+train step a config (a smoke config, or with ``optimized`` in its job
+the optimized overrides on it), on a (2, 4) ``("data", "model")`` mesh of
+8 gloo ranks.  A spawned worker unpickles the function by reference, so it lives
 in this module, which imports no test module and no JAX."""
 import pickle
 
@@ -13,6 +14,7 @@ def sharded_steps(rank, world, store_path, in_path, out_path):
                             rank=rank, world_size=world)
     try:
         from repro_torch import bridge, configs
+        from repro_torch.configs.optimized import optimized_config
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.models.common import (ShapeCase, tree_leaves,
                                                tree_map)
@@ -26,7 +28,9 @@ def sharded_steps(rank, world, store_path, in_path, out_path):
         mesh = make_host_mesh((2, 4), device="cpu")
         out = {}
         for name, job in jobs.items():
-            cfg = configs.get_config(job["arch"], smoke=True)
+            cfg = (optimized_config(job["arch"], smoke=True)
+                   if job.get("optimized")
+                   else configs.get_config(job["arch"], smoke=True))
             params = sharding.shard_params(
                 tree_map(lambda t: t.requires_grad_(True),
                          bridge.params_from_numpy(job["params"], "cpu")),
