@@ -209,8 +209,9 @@ runs phase 5 (``run_sharded``).  The first form:
    step went through its kernels (launch counters set to 0 just before the
    engine run and read just after); one runtime epoch a prefill or decode
    step, no spill, and 16 each of the request-enter/-admit/-exit events;
-   the runtime's cost a call (the wall time of the engine's ``_call``
-   minus its task function's, median and p95, by prefill and decode step)
+   the runtime's cost a call (the wall time of the engine's ``serve.call``
+   span minus its ``serve.task``'s, median and p95, by prefill and decode
+   step)
    and ``EpochStats.server_busy``; two requests' tokens equal a
    one-request greedy generation through ``prefill``/``decode_step``;
    kernel-path logits agree with the plain path; a profile of one decode
@@ -1601,40 +1602,29 @@ def _n_norms(cfg):
     return sum(_norm_widths(cfg).values())
 
 
-def _time_calls(eng):
-    """Wrap the engine's ``_call``: record, for each prefill and decode
-    step, the wall time of the call on the loop thread and of its task
-    function on the pool's thread (the difference is the runtime's cost
-    of the call: submission, dispatch, completion, result and release)."""
-    kinds = {eng._prefill: "prefill", eng._decode: "decode step"}
-    calls = []
-    real = eng._call
-
-    def timed_call(fn, *args):
-        inner = []
-
-        def timed_fn(*a):
-            t0 = time.perf_counter()
-            out = fn(*a)
-            inner.append(time.perf_counter() - t0)
-            return out
-
-        t0 = time.perf_counter()
-        out = real(timed_fn, *args)
-        calls.append((kinds[fn], time.perf_counter() - t0, inner[0]))
-        return out
-
-    eng._call = timed_call
-    return calls
+CALL_KINDS = {"prefill": "prefill", "decode": "decode step"}
 
 
-def runtime_costs(eng, calls):
-    """The runtime's cost of each call (its wall time minus its task
-    function's), and each call's epoch (``EpochStats``: makespan,
-    ``server_busy``), by kind of call; the epochs are the calls, in
-    order.  Checks that there is one epoch a call and that nothing
-    spilled."""
-    rt = eng._cluster.runtime
+def engine_calls(eng):
+    """The engine's calls in order, from its spans: (kind, the wall time
+    of the ``serve.call`` on the loop thread, that of its ``serve.task``
+    on the pool's thread); the difference is the runtime's cost of the
+    call (submission, dispatch, completion, result and release)."""
+    recs = list(eng.spans.records)
+    task = {r.parent: r for r in recs if r.name == "serve.task"}
+    calls = sorted((r for r in recs if r.name == "serve.call"),
+                   key=lambda r: r.t0_ns)
+    return [(CALL_KINDS[c.attrs["kind"]], c.dur_ns / 1e9,
+             task[c.sid].dur_ns / 1e9) for c in calls]
+
+
+def runtime_costs(eng):
+    """The runtime's cost of each call (``engine_calls``), and each
+    call's epoch (``EpochStats``: makespan, ``server_busy``), by kind of
+    call; the epochs are the calls, in order.  Checks that there is one
+    epoch a call and that nothing spilled."""
+    calls = engine_calls(eng)
+    rt = eng.runtime
     epochs = rt.epoch_dicts()
     if len(epochs) != len(calls) or \
             len(calls) != eng.n_prefills + eng.n_decode_steps:
@@ -1669,8 +1659,8 @@ def runtime_costs(eng, calls):
 
 
 def trace_split(cluster, kind_of, makespan, what, card):
-    """The runtime's trace of ``cluster`` (built with ``events`` and
-    ``tracing`` on), through
+    """The runtime's trace of ``cluster`` (a Cluster or a ServingEngine,
+    built with ``events`` and ``tracing`` on), through
     ``repro_torch.core.tracing``: every span complete (all six segments)
     and every ``reconcile()`` check against the runtime's own meters and
     ``makespan`` (the wall time the trace covers) ok; prints
@@ -1727,7 +1717,6 @@ def serve(cfg, params, prompts, trace=False, card=None, conformance=None):
     label = f"{cfg.name} engine"
     if conformance:
         conformance.attach(eng.events, label)
-    calls = _time_calls(eng)
     dropped = []
     _reset_counters()
     t0 = time.perf_counter()
@@ -1745,8 +1734,8 @@ def serve(cfg, params, prompts, trace=False, card=None, conformance=None):
     if conformance:
         conformance.check(label)
         conformance.offline(eng.events, label)
-    runtime = runtime_costs(eng, calls)
-    kinds = [c[0] for c in calls]
+    runtime = runtime_costs(eng)
+    kinds = [c[0] for c in engine_calls(eng)]
     counts = {k: eng.events.counts[k] for k in (
         "request-enter", "request-admit", "request-exit")}
     if counts != dict.fromkeys(counts, N_REQUESTS):
@@ -1795,7 +1784,7 @@ def serve(cfg, params, prompts, trace=False, card=None, conformance=None):
                              f"width {got}, expected {want}")
     rms_calls = {k: (per, got[k]) for k, per in per_call.items()}
     if trace:  # one task a call, in the order of the calls
-        trace_split(eng._cluster, lambda tid: kinds[tid], wall,
+        trace_split(eng, lambda tid: kinds[tid], wall,
                     f"{cfg.name} engine", card)
     lat = np.array([r.finish_t - r.submit_t for r in reqs])
     stats = {"arch": cfg.name, "requests": N_REQUESTS,
@@ -1869,7 +1858,7 @@ def serving_memory(cfg, params, prompts, flood=FLOOD_REQUESTS):
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
                         device="cuda")
-    rt = eng._cluster.runtime
+    rt = eng.runtime
 
     def wave(n):
         reqs = [eng.submit(prompts[i % len(prompts)], max_new_tokens=2)
@@ -1911,7 +1900,6 @@ def engine_run(cfg, params, prompts, conformance=None, label=None):
                         events=True, device="cuda")
     if conformance:
         conformance.attach(eng.events, label)
-    calls = _time_calls(eng)
     t0 = time.perf_counter()
     eng.start()
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS,
@@ -1924,7 +1912,7 @@ def engine_run(cfg, params, prompts, conformance=None, label=None):
     eng.stop()
     if conformance:
         conformance.check(label)
-    return runtime_costs(eng, calls), eng.n_generated / wall
+    return runtime_costs(eng), eng.n_generated / wall
 
 
 def sink_cost(cfg, params, prompts, card, conformance):
@@ -2795,8 +2783,8 @@ def run_slice(arch, widths, layers, card, conformance=None):
     stats.update(card=card, n_params=n_params, parity=parity,
                  memory=memory)
     rc = stats["runtime"]
-    print(f"{arch} runtime cost a call (wall of _call minus its task "
-          f"function; {card}): " + "; ".join(
+    print(f"{arch} runtime cost a call (wall of serve.call minus its "
+          f"serve.task; {card}): " + "; ".join(
               f"{k} median {rc[k]['runtime_ms_median']:.4f} ms, p95 "
               f"{rc[k]['runtime_ms_p95']:.4f} ms over {rc[k]['calls']}"
               for k in ("decode step", "prefill"))

@@ -67,6 +67,8 @@ EVENT_FIELDS = {
     "request-admit": ("rid", "tenant", "slot"),
     "request-exit": ("rid", "tenant", "n_tokens", "latency_s"),
     "train-step": ("step", "makespan"),
+    "span": ("sid", "parent", "name", "thread", "t0", "t1", "rid", "step",
+             "attrs"),
 }
 
 #: Partition of the vocabulary by which state machine consumes it.
@@ -87,6 +89,7 @@ EPOCH_EVENTS = ("epoch-open", "epoch-close")
 STATELESS_EVENTS = (
     "stream-open", "release", "compact", "task-timing",
     "request-enter", "request-admit", "request-exit", "train-step",
+    "span",
 )
 
 TASK_STATES = ("new", "queued", "dispatched", "running", "parked",

@@ -101,6 +101,10 @@ EVENT_TYPES: dict[str, tuple[str, ...]] = {
     "request-admit": ("rid", "tenant", "slot"),
     "request-exit": ("rid", "tenant", "n_tokens", "latency_s"),
     "train-step": ("step", "makespan"),
+    # program spans (repro_torch.core.tracing.Spans with a bus): t0/t1 are
+    # perf_counter seconds, as the envelope's t
+    "span": ("sid", "parent", "name", "thread", "t0", "t1", "rid", "step",
+             "attrs"),
 }
 
 

@@ -53,11 +53,21 @@ and Chrome-trace/Perfetto export (:meth:`TraceAnalysis.to_chrome_trace`).
 Everything here is offline and allocation-free for the runtime: the
 hot path only ever publishes events; span assembly happens in whoever
 calls this module (tests, scripts, ``Cluster.trace_analysis()``).
+
+Above the runtime, :class:`Spans` records the program's own spans (the
+serving engine's loop and pool threads, the trainer's step) in memory,
+on the same ``perf_counter`` clock, each also opened as a profiler range
+of the same name; with a bus they ride the feed as ``span`` events, and
+:meth:`TraceAnalysis.to_chrome_trace` draws them one lane per thread.
 """
 from __future__ import annotations
 
 import bisect
+import collections
+import itertools
 import json
+import threading
+import time
 from dataclasses import dataclass
 from typing import Iterable, Mapping, Sequence
 
@@ -238,6 +248,8 @@ class TraceAnalysis:
         self.makespan = max(0.0, self.t1 - self.t0)
         self.n_lost = sum(1 for s in self.spans if s.status == "lost")
         self._events = events
+        #: the program's ``span`` events (:class:`Spans` with a bus)
+        self.program_spans = [e for e in events if e.get("type") == "span"]
 
     # -- construction ---------------------------------------------------
     @classmethod
@@ -407,9 +419,10 @@ class TraceAnalysis:
         worker carrying that worker's execution slices (single-threaded
         workers guarantee the slices never overlap; queueing/transport
         live in each slice's ``args``), plus a server lane with one
-        slice per epoch.  Timestamps are microseconds from the first
+        slice per epoch, plus one lane per program thread carrying its
+        ``span`` events.  Timestamps are microseconds from the first
         traced boundary."""
-        t0 = self.t0
+        t0 = min([self.t0] + [e["t0"] for e in self.program_spans])
         us = lambda t: (t - t0) * 1e6
         evs: list = [
             {"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
@@ -450,6 +463,20 @@ class TraceAnalysis:
             evs.append({"ph": "X", "name": f"epoch {eid}", "cat": "epoch",
                         "pid": 0, "tid": 0, "ts": us(lo),
                         "dur": max(0.0, (hi - lo) * 1e6)})
+        threads: dict = {}
+        for e in self.program_spans:
+            lane = threads.get(e["thread"])
+            if lane is None:
+                lane = threads[e["thread"]] = len(wids) + 1 + len(threads)
+                evs.append({"ph": "M", "name": "thread_name", "pid": 0,
+                            "tid": lane,
+                            "args": {"name": f"program {e['thread']}"}})
+            evs.append({"ph": "X", "name": e["name"], "cat": "span",
+                        "pid": 0, "tid": lane, "ts": us(e["t0"]),
+                        "dur": max(0.0, (e["t1"] - e["t0"]) * 1e6),
+                        "args": {"sid": e["sid"], "parent": e["parent"],
+                                 "rid": e["rid"], "step": e["step"],
+                                 **(e["attrs"] or {})}})
         return {"displayTimeUnit": "ms", "traceEvents": evs,
                 "otherData": {"n_spans": len(self.spans),
                               "n_workers": self.n_workers,
@@ -502,3 +529,266 @@ def format_reconciliation(checks: Sequence[Mapping]) -> str:
     n_fail = sum(1 for c in checks if c["ok"] is False)
     out.append(f"reconciliation: {len(checks)} checks, {n_fail} failed")
     return "\n".join(out)
+
+
+# ---------------------------------------------------------------------------
+# Program spans: the layers above the runtime
+# ---------------------------------------------------------------------------
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One closed program span.  ``t0_ns``/``t1_ns`` are
+    ``time.perf_counter_ns`` (the clock of the event envelopes and of the
+    thread runtime's task timings); ``thread`` is the opening thread's
+    name; ``parent`` the id of the span it ran under (None at the top)."""
+
+    sid: int
+    parent: int | None
+    name: str
+    thread: str
+    t0_ns: int
+    t1_ns: int
+    rid: int | None = None
+    step: int | None = None
+    attrs: dict | None = None
+    events: tuple | None = None         # CUDA (start, end), device=True
+    _device_s: float | None = None
+
+    @property
+    def dur_ns(self) -> int:
+        return self.t1_ns - self.t0_ns
+
+    @property
+    def device_s(self) -> float | None:
+        """Seconds between the span's two CUDA events, once the end event
+        has completed (None before, or without ``device=True``).  Reading
+        it never waits for the card."""
+        if self._device_s is None and self.events is not None:
+            start, end = self.events
+            if end.query():
+                self._device_s = start.elapsed_time(end) / 1e3
+                self.events = None
+        return self._device_s
+
+
+class _Open:
+    """A span while it is open: ``sid`` links a span on another thread to
+    it (``parent=sid``), and ``set()`` adds attributes."""
+
+    __slots__ = ("rec", "sid", "parent", "name", "rid", "step", "attrs",
+                 "device", "t0", "_range", "_ev0")
+
+    def __init__(self, rec, sid, parent, name, rid, step, attrs, device):
+        self.rec, self.sid, self.parent, self.name = rec, sid, parent, name
+        self.rid, self.step, self.attrs, self.device = rid, step, attrs, \
+            device
+
+    def __enter__(self):
+        rec = self.rec
+        stack = rec._stack()
+        if stack:
+            top = stack[-1]
+            if self.parent is None:
+                self.parent = top.sid
+            if self.rid is None:
+                self.rid = top.rid
+            if self.step is None:
+                self.step = top.step
+        stack.append(self)
+        self._range = rec._range_of(self.name)
+        self._range.__enter__()
+        if self.device:
+            self._ev0 = rec._cuda_event()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def set(self, **attrs) -> None:
+        """Set attributes of the open span."""
+        self.attrs.update(attrs)
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        rec = self.rec
+        events = None
+        if self.device:
+            ev1 = rec._cuda_event()
+            if self._ev0 is not None:
+                events = (self._ev0, ev1)
+        self._range.__exit__(*exc)
+        stack = rec._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        rec._close(SpanRecord(self.sid, self.parent, self.name,
+                              threading.current_thread().name, self.t0, t1,
+                              self.rid, self.step, self.attrs or None,
+                              events))
+        return False
+
+
+class _Null:
+    """The open span of a disabled recorder: records nothing."""
+
+    sid = parent = rid = step = None
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _Null()
+
+
+class _NoSpans:
+    """A recorder that records nothing and is not registered with
+    :func:`recorder`: the default of code that takes an optional one."""
+
+    enabled = False
+
+    def span(self, name: str, **kw) -> _Null:
+        return _NULL
+
+
+NO_SPANS = _NoSpans()
+
+#: name -> the newest :class:`Spans` built under it (:func:`recorder`)
+_RECORDERS: dict = {}
+
+
+def recorder(name: str) -> "Spans | None":
+    """The newest recorder built under ``name``: a reader finds a stopped
+    engine's or trainer's spans here after their owner is gone."""
+    return _RECORDERS.get(name)
+
+
+class Spans:
+    """An in-memory recorder of program spans.
+
+    ``with spans.span(name, parent=None, device=False, rid=None,
+    step=None, **attrs) as sp:`` opens a span on the current thread.
+    Spans nested on one thread take the enclosing span as their parent
+    (and its ``rid``/``step`` unless given); ``parent=sp.sid`` links a
+    span to one opened on another thread.  Each span is also a profiler
+    range of the same name, so a profiler that captures the thread shows
+    the program's names.  ``device=True`` records a CUDA event on the
+    current stream at entry and exit; :attr:`SpanRecord.device_s` reads
+    their interval once the end has completed.  Nothing here waits for
+    the card.
+
+    Closed spans go to a ring of ``capacity`` (:attr:`records`) and to
+    per-name totals (:meth:`totals`); with ``bus`` each is also published
+    as a ``span`` event.  ``enabled=False`` makes every call a no-op.
+    The newest recorder of each ``name`` is kept for :func:`recorder`.
+    """
+
+    def __init__(self, name: str, capacity: int = 65536,
+                 enabled: bool = True, bus=None):
+        self.name = name
+        self.enabled = enabled
+        self.bus = bus
+        self.records: collections.deque = collections.deque(maxlen=capacity)
+        self._totals: dict = {}
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+        self.t_open_ns = time.perf_counter_ns()
+        self.t_closed_ns: int | None = None
+        self._anchor = _clock_anchor()
+        if enabled:     # a profiler range a span, ~0.5 us with none on
+            from torch._C._profiler import _RecordFunctionFast
+            self._range_of = _RecordFunctionFast
+        self._cuda = None
+        _RECORDERS[name] = self
+
+    # -- recording ------------------------------------------------------
+    def span(self, name: str, parent: int | None = None,
+             device: bool = False, rid: int | None = None,
+             step: int | None = None, **attrs):
+        if not self.enabled:
+            return _NULL
+        return _Open(self, next(self._ids), parent, name, rid, step, attrs,
+                     device)
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def _cuda_event(self):
+        """A CUDA event recorded on the current stream, or None without a
+        card."""
+        if self._cuda is None:
+            import torch
+            self._cuda = torch.cuda if torch.cuda.is_available() else False
+        if not self._cuda:
+            return None
+        ev = self._cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _close(self, rec: SpanRecord) -> None:
+        self.records.append(rec)
+        with self._lock:    # the loop and pool threads both close spans
+            tot = self._totals.get(rec.name)
+            if tot is None:
+                tot = self._totals[rec.name] = [0, 0]
+            tot[0] += 1
+            tot[1] += rec.t1_ns - rec.t0_ns
+        if self.bus is not None:
+            self.bus.publish("span", sid=rec.sid, parent=rec.parent,
+                             name=rec.name, thread=rec.thread,
+                             t0=rec.t0_ns / 1e9, t1=rec.t1_ns / 1e9,
+                             rid=rec.rid, step=rec.step,
+                             attrs=rec.attrs)
+
+    def close(self) -> None:
+        """Stamp the end of the recorder's life (``t_closed_ns``); spans
+        still open may close after it."""
+        if self.t_closed_ns is None:
+            self.t_closed_ns = time.perf_counter_ns()
+
+    # -- reading --------------------------------------------------------
+    def window(self, seconds: float) -> list | None:
+        """The closed spans that lie in the ``seconds`` before
+        :meth:`close`, or None while the recorder is open or where it was
+        built inside that window (it then recorded another run)."""
+        hi = self.t_closed_ns
+        if hi is None:
+            return None
+        lo = hi - int(seconds * 1e9)
+        if self.t_open_ns > lo:
+            return None
+        return [r for r in list(self.records)
+                if r.t0_ns >= lo and r.t1_ns <= hi]
+
+    def totals(self) -> dict:
+        """Per span name: ``{"n": count, "s": seconds}`` over every span
+        closed so far (the ring's bound does not apply)."""
+        with self._lock:
+            return {k: {"n": n, "s": ns / 1e9}
+                    for k, (n, ns) in self._totals.items()}
+
+    def to_profiler_ns(self, t_ns: int) -> int:
+        """``t_ns`` (``perf_counter_ns``) on the profiler's clock: the
+        Unix-epoch nanoseconds of ``torch.profiler``'s events."""
+        perf, wall = self._anchor
+        return t_ns - perf + wall
+
+
+def _clock_anchor(samples: int = 5) -> tuple:
+    """A (``perf_counter_ns``, ``time_ns``) pair read together, from the
+    tightest of ``samples`` reads."""
+    best = None
+    for _ in range(samples):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, wall)
+    return best[1:]

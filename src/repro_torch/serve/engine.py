@@ -17,6 +17,16 @@ events, keyed by a caller-supplied ``tenant``, into the same structured
 feed the runtime's control-plane events ride
 (:mod:`repro_torch.core.events`); ``tracing=True`` adds the worker-side
 stamps that the pool's ``trace_analysis()`` splits into segments.
+
+Above the runtime the engine records its own spans
+(:class:`repro_torch.core.tracing.Spans`, recorder ``"serve"``, on
+unless ``spans=False``): on the loop thread ``serve.step`` (a step that
+found work), ``serve.admit`` (one admitted request), ``serve.call`` (one
+runtime call, submit to released result) and ``serve.readback``; the
+loop is idle in the gaps between steps.  On the pool's thread
+``serve.task`` (the task function, a child of its call), ``serve.h2d``
+(host inputs to the device) and ``serve.model`` (the model's enqueue).
+With ``events=`` the spans ride the same bus.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.client import Cluster
+from repro_torch.core.tracing import Spans
 from repro_torch.device import resolve
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import tree_map
@@ -46,6 +57,8 @@ class Request:
     done: threading.Event = dataclasses.field(
         default_factory=threading.Event)
     submit_t: float = 0.0
+    admit_t: float = 0.0          # admission (its prefill) began
+    first_token_t: float = 0.0    # its first token was appended
     finish_t: float = 0.0
     tenant: str = "default"       # event-stream key (multi-tenant views)
 
@@ -72,16 +85,19 @@ def prefill_length(cfg: ModelConfig, n: int, max_len: int) -> int:
 DEFAULT_MEMORY_LIMIT = 256 * 2**20
 
 
-def _task(fn):
-    """``fn`` as a task of the engine's pool.  It enters inference mode
+def _task(fn, spans, kind: str):
+    """``fn`` as a task of the engine's pool, called with the id of the
+    ``serve.call`` span that submitted it first: it runs under a
+    ``serve.task`` span of that parent.  It enters inference mode
     itself: the mode is thread-local, and the task runs on the pool's
     worker thread.  It returns an exception instead of raising it, since
     the runtime's worker loop has no handler (a raise would end the
     worker thread and leave ``_call`` waiting out its timeout);
     ``_call`` raises it on the loop thread."""
-    def task(*args):
+    def task(call_sid, *args):
         try:
-            with torch.inference_mode():
+            with spans.span("serve.task", parent=call_sid, kind=kind), \
+                    torch.inference_mode():
                 return fn(*args)
         except Exception as e:
             return e
@@ -106,7 +122,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_batch: int = 8,
                  max_len: int = 256,
                  memory_limit: int | None = DEFAULT_MEMORY_LIMIT,
-                 events=None, tracing: bool = False,
+                 events=None, tracing: bool = False, spans: bool = True,
                  device: torch.device | str | None = None):
         if cfg.num_codebooks:
             raise NotImplementedError(
@@ -139,43 +155,67 @@ class ServingEngine:
         # position tensors, and a prefill's one-slot cache, are made on
         # the card inside the task and freed with its released result.
         def prefill_fn(params, tokens):
-            cache = model_lib.init_cache(cfg, 1, max_len, device=self.device)
-            return model_lib.prefill(
-                params, cfg, torch.from_numpy(tokens).to(self.device), cache)
+            with self.spans.span("serve.h2d"):
+                tokens = torch.from_numpy(tokens).to(self.device)
+            with self.spans.span("serve.model"):
+                cache = model_lib.init_cache(cfg, 1, max_len,
+                                             device=self.device)
+                return model_lib.prefill(params, cfg, tokens, cache)
 
         def decode_fn(params, tokens, cache, pos):
-            logits, cache = model_lib.decode_step(
-                params, cfg, torch.from_numpy(tokens).to(self.device), cache,
-                torch.from_numpy(pos).to(self.device))
-            # greedy on the logits' own dtype; first index on ties
-            return torch.argmax(logits[:, 0], dim=-1), cache
+            with self.spans.span("serve.h2d"):
+                tokens = torch.from_numpy(tokens).to(self.device)
+                pos = torch.from_numpy(pos).to(self.device)
+            with self.spans.span("serve.model"):
+                logits, cache = model_lib.decode_step(params, cfg, tokens,
+                                                      cache, pos)
+                # greedy on the logits' own dtype; first index on ties
+                return torch.argmax(logits[:, 0], dim=-1), cache
 
-        self._prefill = _task(prefill_fn)
-        self._decode = _task(decode_fn)
         # warm single-executor pool: every prefill/decode is a client
         # submission, reused across steps and requests
         self._cluster = Cluster(server="rsds", scheduler="ws",
                                 n_workers=1, runtime="thread",
                                 name="serving", memory_limit=memory_limit,
                                 events=events, tracing=tracing)
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self.spans = Spans("serve", enabled=spans, bus=self._cluster.events)
+        self._prefill = _task(prefill_fn, self.spans, "prefill")
+        self._decode = _task(decode_fn, self.spans, "decode")
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="serve-loop")
 
     @property
     def events(self):
         """The engine's event bus (None unless built with ``events=``)."""
         return self._cluster.events
 
+    @property
+    def runtime(self):
+        """The pool's server (:class:`repro_torch.core.server.ServerCore`):
+        its epochs, meters and ``run_stats()``."""
+        return self._cluster.runtime
+
     def observe(self) -> dict:
         """Live snapshot of the pool serving this engine (see
-        :meth:`repro_torch.core.server.ServerCore.observe`)."""
-        return self._cluster.observe()
+        :meth:`repro_torch.core.server.ServerCore.observe`), with the
+        engine's span totals (:meth:`Spans.totals`) under ``"spans"``."""
+        snap = self._cluster.observe()
+        snap["spans"] = self.spans.totals()
+        return snap
 
-    def _call(self, fn, *args):
-        """Run one compute on the warm pool and free its key; raise here
-        an exception the task returned."""
-        fut = self._cluster.client.submit(fn, *args)
-        out = fut.result(timeout=300.0)
-        fut.release()
+    def trace_analysis(self):
+        """The pool's runtime trace (:meth:`Cluster.trace_analysis`;
+        needs ``events=``, and ``tracing=True`` for worker segments)."""
+        return self._cluster.trace_analysis()
+
+    def _call(self, fn, *args, kind: str, rid: int | None = None):
+        """Run one compute on the warm pool and free its key, under a
+        ``serve.call`` span; raise here an exception the task
+        returned."""
+        with self.spans.span("serve.call", kind=kind, rid=rid) as sp:
+            fut = self._cluster.client.submit(fn, sp.sid, *args)
+            out = fut.result(timeout=300.0)
+            fut.release()
         if isinstance(out, Exception):
             raise out
         return out
@@ -186,6 +226,7 @@ class ServingEngine:
 
     def stop(self) -> None:
         self._stop.set()
+        self.spans.close()
         self._thread.join(timeout=10)
         self._cluster.close()
         if self.error is not None:
@@ -212,45 +253,58 @@ class ServingEngine:
                 req = self.inbox.get_nowait()
             except queue.Empty:
                 return
-            # prefill prompt[:-1]; the last prompt token goes through the
-            # normal decode path, yielding the first generated token with a
-            # correctly positioned cache write.
-            s = len(req.prompt)
-            if s > 1:
-                n = prefill_length(self.cfg, s - 1, self.max_len)
-                toks = np.zeros((1, n), np.int32)
-                toks[0, :s - 1] = req.prompt[:-1]  # right-pad
-                _, one_cache = self._call(self._prefill, self.params, toks)
-                self.n_prefills += 1
-                # in place, where the JAX engine does .at[:, slot].set
-                tree_map(lambda g, p: g[:, slot].copy_(p[:, 0]),
-                         self.cache, one_cache)
-            self.pos[slot] = s - 1
-            self._next_in[slot] = int(req.prompt[-1])
-            self.active[slot] = req
-            ev = self._cluster.events
-            if ev is not None:
-                ev.publish("request-admit", rid=req.rid,
-                           tenant=req.tenant, slot=slot)
+            req.admit_t = time.perf_counter()
+            with self.spans.span("serve.admit", rid=req.rid,
+                                 wait_s=req.admit_t - req.submit_t):
+                self._admit_one(req, slot)
 
-    def _step(self) -> bool:
-        """Admit, then one batched decode step; False when idle.  Runs
-        under the loop thread's inference mode."""
+    def _admit_one(self, req: Request, slot: int) -> None:
+        # prefill prompt[:-1]; the last prompt token goes through the
+        # normal decode path, yielding the first generated token with a
+        # correctly positioned cache write.
+        s = len(req.prompt)
+        if s > 1:
+            n = prefill_length(self.cfg, s - 1, self.max_len)
+            toks = np.zeros((1, n), np.int32)
+            toks[0, :s - 1] = req.prompt[:-1]  # right-pad
+            _, one_cache = self._call(self._prefill, self.params, toks,
+                                      kind="prefill", rid=req.rid)
+            self.n_prefills += 1
+            # in place, where the JAX engine does .at[:, slot].set
+            tree_map(lambda g, p: g[:, slot].copy_(p[:, 0]),
+                     self.cache, one_cache)
+        self.pos[slot] = s - 1
+        self._next_in[slot] = int(req.prompt[-1])
+        self.active[slot] = req
+        ev = self._cluster.events
+        if ev is not None:
+            ev.publish("request-admit", rid=req.rid, tenant=req.tenant,
+                       slot=slot)
+
+    def _step(self, sp) -> bool:
+        """Admit, then one batched decode step under the open
+        ``serve.step`` span ``sp``; False when idle.  Runs under the loop
+        thread's inference mode."""
         self._admit()
         live = [i for i, r in enumerate(self.active) if r is not None]
         if not live:
             return False
+        sp.set(live=len(live))
         tokens = np.zeros((self.max_batch, 1), np.int32)
         for i in live:
             tokens[i, 0] = self._next_in[i]
         nxt, self.cache = self._call(self._decode, self.params, tokens,
-                                     self.cache, self.pos.copy())
-        nxt = nxt.cpu().numpy()
+                                     self.cache, self.pos.copy(),
+                                     kind="decode")
+        with self.spans.span("serve.readback"):
+            nxt = nxt.cpu().numpy()
         self.n_decode_steps += 1
         for i in live:
             req = self.active[i]
             self.pos[i] += 1
             req.out_tokens.append(int(nxt[i]))
+            if len(req.out_tokens) == 1:
+                req.first_token_t = time.perf_counter()
             self._next_in[i] = int(nxt[i])
             self.n_generated += 1
             done = (len(req.out_tokens) >= req.max_new_tokens
@@ -274,8 +328,13 @@ class ServingEngine:
             # read-back); each task enters the mode on the pool's thread
             with torch.inference_mode():
                 while not self._stop.is_set():
-                    if not self._step():
+                    # work is found iff a slot is live or a request waits
+                    # (only this thread empties the inbox or a slot)
+                    if not any(self.active) and self.inbox.empty():
                         time.sleep(0.002)
+                        continue
+                    with self.spans.span("serve.step") as sp:
+                        self._step(sp)
         except Exception as e:  # the loop's boundary: keep it for stop()
             self.error = e
             for r in self.active:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.tracing import NO_SPANS, Spans
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
@@ -56,15 +57,21 @@ def make_grad_fn(cfg: ModelConfig):
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, spans: Spans | None = None):
     """Returns train_step(params, opt_state, batch) ->
     (params, opt_state, metrics); params and state are updated in place
-    (:mod:`.optimizer`)."""
+    (:mod:`.optimizer`).  With ``spans`` (a
+    :class:`repro_torch.core.tracing.Spans`) each forward and backward
+    runs under a ``train.grad`` span and the update under
+    ``train.optimizer``, both timed on the device too."""
     grad_fn = make_grad_fn(cfg)
+    spans = spans or NO_SPANS
 
     def single(params, opt_state, batch):
-        (_, metrics), grads = grad_fn(params, batch)
-        params, opt_state, om = opt.apply(params, grads, opt_state)
+        with spans.span("train.grad", device=True):
+            (_, metrics), grads = grad_fn(params, batch)
+        with spans.span("train.optimizer", device=True):
+            params, opt_state, om = opt.apply(params, grads, opt_state)
         metrics.update(om)
         return params, opt_state, metrics
 
@@ -80,12 +87,14 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
                                               device=p.device), params)
         lsum = 0.0
         for i in range(grad_accum):
-            (loss, _), grads = grad_fn(params, {k: v[i] for k, v in
-                                                micro.items()})
-            tree_map(lambda s, g: s.add_(g), gsum, grads)
+            with spans.span("train.grad", device=True):
+                (loss, _), grads = grad_fn(params, {k: v[i] for k, v in
+                                                    micro.items()})
+                tree_map(lambda s, g: s.add_(g), gsum, grads)
             lsum = lsum + loss
         grads = tree_map(lambda g: g / grad_accum, gsum)
-        params, opt_state, om = opt.apply(params, grads, opt_state)
+        with spans.span("train.optimizer", device=True):
+            params, opt_state, om = opt.apply(params, grads, opt_state)
         om["loss"] = lsum / grad_accum
         return params, opt_state, om
 

@@ -32,6 +32,7 @@ import torch
 from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.core.client import Cluster
 from repro_torch.core.graph import Task, TaskGraph
+from repro_torch.core.tracing import Spans
 from repro_torch.data.pipeline import PrefetchPipeline, SyntheticDataset
 from repro_torch.device import resolve
 from repro_torch.models import model as model_lib
@@ -56,9 +57,17 @@ class TrainerConfig:
 
 
 class Trainer:
+    """The single-controller loop.  Each step runs under a ``train.step``
+    span of the recorder ``self.spans`` (``"train"``, on unless
+    ``spans=False``), with the children ``train.data`` (the next batch to
+    the device), ``train.grad`` and ``train.optimizer`` (also timed on
+    the device) and ``train.sync`` (the loss and gradient norm read
+    back), each carrying the step's number."""
+
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
                  optimizer: Optimizer | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 spans: bool = True):
         self.cfg = cfg
         self.tc = tc
         self.device = resolve(device)
@@ -70,7 +79,8 @@ class Trainer:
         self.step = 0
         self.dataset = SyntheticDataset(cfg, tc.global_batch, tc.seq_len,
                                         tc.seed)
-        self._train_step = make_train_step(cfg, self.opt)
+        self.spans = Spans("train", enabled=spans)
+        self._train_step = make_train_step(cfg, self.opt, spans=self.spans)
         self._eval_step = make_eval_step(cfg)
         self.ckptr = (ckpt_lib.AsyncCheckpointer(tc.ckpt_dir, tc.keep_ckpts)
                       if tc.ckpt_dir else None)
@@ -100,16 +110,20 @@ class Trainer:
                                 start_step=self.step)
         try:
             while self.step < steps:
-                step_id, batch = pipe.get()
-                batch = self._batch(batch)
-                t0 = time.perf_counter()
-                self.params, self.opt_state, metrics = self._train_step(
-                    self.params, self.opt_state, batch)
-                loss = float(metrics["loss"])
+                with self.spans.span("train.step", step=self.step + 1):
+                    with self.spans.span("train.data"):
+                        step_id, batch = pipe.get()
+                        batch = self._batch(batch)
+                    t0 = time.perf_counter()
+                    self.params, self.opt_state, metrics = self._train_step(
+                        self.params, self.opt_state, batch)
+                    with self.spans.span("train.sync"):
+                        loss = float(metrics["loss"])
+                        grad_norm = float(metrics["grad_norm"])
+                    t1 = time.perf_counter()
                 self.step = step_id + 1
                 rec = {"step": self.step, "loss": loss,
-                       "grad_norm": float(metrics["grad_norm"]),
-                       "time_s": time.perf_counter() - t0}
+                       "grad_norm": grad_norm, "time_s": t1 - t0}
                 self.history.append(rec)
                 if self.ckptr and self.step % self.tc.ckpt_every == 0:
                     self.ckptr.save(self.step,

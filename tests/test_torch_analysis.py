@@ -146,6 +146,7 @@ def test_port_scans_only_the_port():
                                       ra4_async, ra5_locks, ra6_protocol,
                                       ra7_invariants, ra8_protocol_docs)
     paths = [ra1_wire.MESSAGES, ra2_events.EVENTS, *ra2_events.SCAN,
+             *ra2_events.OPTIONAL_SCAN,
              ra3_meters.SERVER, ra3_meters.REACTOR, ra3_meters.RUNTIME,
              ra4_async.SCAN_DIR, ra5_locks.STORE, ra5_locks.SERVER,
              ra6_protocol.PROTOCOL, ra6_protocol.EVENTS,

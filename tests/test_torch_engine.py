@@ -273,3 +273,96 @@ def test_failed_decode_step_makes_stop_raise(monkeypatch):
     assert req.out_tokens == []
     assert not eng._thread.is_alive()
     assert eng._cluster.runtime.dead == set()
+
+
+def _spanned_run(**kw):
+    """A CPU run of llama3.2-1b's smoke model on a fresh engine (three
+    requests, two slots); the engine, its requests and its spans."""
+    from repro_torch.models import model as tmodel
+    cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
+    params = tmodel.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    eng, reqs = _serve(cfg, params, [np.arange(n) % cfg.vocab_size
+                                     for n in (4, 9, 6)], 3, max_batch=2,
+                       max_len=64, **kw)
+    return eng, reqs, list(eng.spans.records)
+
+
+def test_engine_spans_link_each_call_to_its_task():
+    """Every ``serve.call`` has exactly one ``serve.task`` child, opened
+    on the pool's thread inside the call, with the call's kind; a
+    prefill's call carries its request and lies in its admission; the
+    task's host copies and model work nest in it."""
+    eng, reqs, recs = _spanned_run()
+    by_sid = {r.sid: r for r in recs}
+    calls = [r for r in recs if r.name == "serve.call"]
+    assert len(calls) == eng.n_prefills + eng.n_decode_steps
+    for c in calls:
+        tasks = [r for r in recs if r.name == "serve.task"
+                 and r.parent == c.sid]
+        assert len(tasks) == 1
+        t = tasks[0]
+        assert c.t0_ns <= t.t0_ns <= t.t1_ns <= c.t1_ns
+        assert t.thread != c.thread == "serve-loop"
+        assert t.attrs["kind"] == c.attrs["kind"]
+        kids = sorted(r.name for r in recs if r.parent == t.sid)
+        assert kids == ["serve.h2d", "serve.model"]
+        parent = by_sid[c.parent]
+        if c.attrs["kind"] == "prefill":
+            assert parent.name == "serve.admit" and c.rid == parent.rid
+        else:
+            assert parent.name == "serve.step" and c.rid is None
+    admits = {r.rid for r in recs if r.name == "serve.admit"}
+    assert admits == {r.rid for r in reqs}
+    assert sum(r.name == "serve.readback" for r in recs) == \
+        eng.n_decode_steps
+    assert eng.observe()["spans"]["serve.call"]["n"] == len(calls)
+
+
+def test_request_stamps_are_ordered():
+    eng, reqs, recs = _spanned_run()
+    waits = {r.rid: r.attrs["wait_s"] for r in recs
+             if r.name == "serve.admit"}
+    for r in reqs:
+        assert 0 < r.submit_t <= r.admit_t <= r.first_token_t <= r.finish_t
+        assert waits[r.rid] == r.admit_t - r.submit_t
+
+
+def test_loop_spans_partition_the_engines_life():
+    """The loop thread's top-level spans are the steps that found work;
+    they follow one another without overlap inside the engine's life, so
+    they and the idle gaps between them partition it; every other loop
+    span nests in one of them."""
+    eng, reqs, recs = _spanned_run()
+    loop = [r for r in recs if r.thread == "serve-loop"]
+    top = sorted((r for r in loop if r.parent is None),
+                 key=lambda r: r.t0_ns)
+    assert {r.name for r in top} == {"serve.step"}
+    assert len(top) >= eng.n_decode_steps
+    assert all(r.attrs["live"] >= 1 for r in top)
+    assert eng.spans.t_open_ns <= top[0].t0_ns
+    assert top[-1].t0_ns <= eng.spans.t_closed_ns
+    for a, b in zip(top, top[1:]):
+        assert a.t1_ns <= b.t0_ns
+    by_sid = {r.sid: r for r in loop}
+    for r in loop:
+        if r.parent is not None:
+            p = by_sid[r.parent]
+            assert p.t0_ns <= r.t0_ns <= r.t1_ns <= p.t1_ns
+
+
+def test_trace_analysis_through_the_engine():
+    """``trace_analysis()`` hands out the pool's runtime trace, with the
+    engine's spans in its Chrome export, without reaching the private
+    cluster; ``spans=False`` records none."""
+    eng, reqs, recs = _spanned_run(events=True, tracing=True)
+    ta = eng.trace_analysis()
+    assert len(ta.spans) == eng.n_prefills + eng.n_decode_steps
+    assert len(ta.program_spans) == len(recs)
+    assert not [c for c in ta.reconcile(eng.runtime.run_stats())
+                if c["ok"] is False]
+    lanes = {e["args"]["name"] for e in ta.to_chrome_trace()["traceEvents"]
+             if e["ph"] == "M"}
+    assert "program serve-loop" in lanes
+    off, _, off_recs = _spanned_run(spans=False)
+    assert off_recs == [] and off.observe()["spans"] == {}

@@ -392,3 +392,216 @@ def test_engine_and_coordinator_hand_tracing_to_their_pool(owner):
     checks = ta.reconcile(stats)
     assert not [c for c in checks if c["ok"] is False], \
         ttracing.format_reconciliation(checks)
+
+
+# ---------------------------------------------------------------------------
+# program spans (repro_torch.core.tracing.Spans)
+# ---------------------------------------------------------------------------
+
+def test_spans_ring_is_bounded_and_totals_count_every_span():
+    sp = ttracing.Spans("test-ring", capacity=4)
+    for i in range(10):
+        with sp.span("a" if i % 2 else "b", step=i):
+            pass
+    assert len(sp.records) == 4
+    assert [r.step for r in sp.records] == [6, 7, 8, 9]
+    tot = sp.totals()
+    assert {k: v["n"] for k, v in tot.items()} == {"a": 5, "b": 5}
+    assert all(v["s"] >= 0 for v in tot.values())
+    assert ttracing.recorder("test-ring") is sp
+
+
+def test_spans_nest_on_a_thread_and_link_across_threads():
+    """Nested spans take the enclosing one as parent, with its rid and
+    step; a span on another thread links by ``parent=`` and nests its
+    own children there."""
+    import threading
+    sp = ttracing.Spans("test-links")
+    seen = {}
+
+    def worker(parent):
+        with sp.span("task", parent=parent) as t:
+            with sp.span("inner"):
+                pass
+        seen["task"] = t.sid
+
+    with sp.span("outer", rid=3, step=5) as outer:
+        with sp.span("child", k=1) as child:
+            child.set(live=2)
+        th = threading.Thread(target=worker, args=(outer.sid,),
+                              name="pool")
+        th.start()
+        th.join(10)
+    assert not th.is_alive()
+    by = {r.name: r for r in sp.records}
+    assert by["outer"].parent is None
+    assert by["child"].parent == outer.sid
+    assert (by["child"].rid, by["child"].step) == (3, 5)
+    assert by["child"].attrs == {"k": 1, "live": 2}
+    assert by["task"].parent == outer.sid and by["task"].thread == "pool"
+    assert by["task"].rid is None
+    assert by["inner"].parent == seen["task"]
+    assert by["outer"].thread == threading.current_thread().name
+    for r in sp.records:
+        assert r.t1_ns >= r.t0_ns and r.device_s is None
+    o = by["outer"]
+    for name in ("child", "task", "inner"):
+        assert o.t0_ns <= by[name].t0_ns <= by[name].t1_ns <= o.t1_ns
+
+
+def test_disabled_spans_record_nothing():
+    bus = EventBus()
+    sp = ttracing.Spans("test-off", enabled=False, bus=bus)
+    with sp.span("a", device=True) as a:
+        a.set(x=1)
+        with sp.span("b", parent=a.sid):
+            pass
+    sp.close()
+    assert list(sp.records) == [] and sp.totals() == {}
+    assert bus.counts["span"] == 0
+    assert ttracing.recorder("test-off") is sp
+
+
+def test_spans_publish_span_events_into_the_chrome_trace():
+    """With a bus each closed span is one ``span`` event carrying every
+    field the vocabulary declares, in the envelope's clock; the trace's
+    Chrome export draws them in one lane per thread."""
+    from repro_torch.core.events import EVENT_TYPES
+    bus = EventBus()
+    sp = ttracing.Spans("test-bus", bus=bus)
+    with sp.span("outer", step=1):
+        with sp.span("inner", kind="x"):
+            pass
+    evs = [e for e in bus.since(-1) if e["type"] == "span"]
+    assert [e["name"] for e in evs] == ["inner", "outer"]
+    for e, r in zip(evs, sp.records):
+        assert set(EVENT_TYPES["span"]) <= set(e)
+        assert (e["sid"], e["parent"], e["step"], e["attrs"]) == \
+            (r.sid, r.parent, r.step, r.attrs)
+        assert e["t0"] == r.t0_ns / 1e9 and e["t1"] <= e["t"]
+    ta = ttracing.TraceAnalysis.from_events(bus.since(-1))
+    ct = ta.to_chrome_trace()
+    lanes = [e for e in ct["traceEvents"] if e["ph"] == "M"
+             and e["args"]["name"].startswith("program ")]
+    assert len(lanes) == 1
+    slices = [e for e in ct["traceEvents"] if e.get("cat") == "span"]
+    assert {e["name"] for e in slices} == {"inner", "outer"}
+    assert all(e["tid"] == lanes[0]["tid"] and e["ts"] >= 0
+               for e in slices)
+    assert {e["args"]["step"] for e in slices} == {1}
+
+
+def test_close_stamps_the_end_once():
+    sp = ttracing.Spans("test-close")
+    assert sp.t_closed_ns is None
+    sp.close()
+    t = sp.t_closed_ns
+    sp.close()
+    assert sp.t_closed_ns == t >= sp.t_open_ns
+
+
+def test_window_keeps_the_spans_before_close_of_an_older_recorder():
+    """``window(s)`` gives the closed spans inside the ``s`` seconds before
+    ``close()``; an open recorder, or one built inside those seconds (it
+    recorded another run), gives None."""
+    ms = 1_000_000
+    sp = ttracing.Spans("test-window")
+    assert sp.window(0.1) is None
+    sp.t_open_ns, sp.t_closed_ns = 0, 1000 * ms
+    sp.records.extend(ttracing.SpanRecord(i, None, "s", "t", t0 * ms,
+                                          t1 * ms)
+                      for i, (t0, t1) in enumerate(
+                          [(850, 860), (895, 905), (900, 950),
+                           (990, 1000), (995, 1005)]))
+    assert [r.sid for r in sp.window(0.1)] == [2, 3]
+    sp.t_open_ns = 901 * ms
+    assert sp.window(0.1) is None
+
+
+def test_a_train_step_without_spans_registers_no_recorder():
+    from repro_torch import configs as tconfigs
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    before = dict(ttracing._RECORDERS)
+    make_train_step(tconfigs.get_config("llama3.2-1b", smoke=True),
+                    make_optimizer("adamw"))
+    assert ttracing._RECORDERS == before
+
+
+def _profiled_events(fn, **kw):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], **kw) as prof:
+        fn()
+    return {e.name(): e for e in prof.profiler.kineto_results.events()}
+
+
+def test_span_lands_on_the_profilers_clock():
+    """A span opened on the profiling thread is a profiler range of the
+    same name, and ``to_profiler_ns`` puts its ends within 100 us of the
+    range's."""
+    import time
+    sp = ttracing.Spans("test-clock")
+
+    def work():
+        for i in range(3):
+            with sp.span(f"clock-{i}"):
+                time.sleep(0.002)
+
+    got = _profiled_events(work)
+    for r in sp.records:
+        e = got[r.name]
+        assert abs(e.start_ns() - sp.to_profiler_ns(r.t0_ns)) < 100_000
+        assert abs(e.start_ns() + e.duration_ns()
+                   - sp.to_profiler_ns(r.t1_ns)) < 100_000
+
+
+def test_a_loop_thread_span_reaches_an_all_threads_profile():
+    """Spans opened on another thread appear in a profile that captures
+    every thread (where this PyTorch offers that)."""
+    import threading
+    import time
+    make = torch._C._profiler._ExperimentalConfig
+    try:
+        cfg = make(profile_all_threads=True)
+    except TypeError:
+        pytest.skip("this PyTorch cannot profile every thread")
+    sp = ttracing.Spans("test-threads")
+
+    def loop():
+        with sp.span("loop-span"):
+            time.sleep(0.001)
+
+    def work():
+        th = threading.Thread(target=loop, name="loop")
+        th.start()
+        th.join(10)
+
+    assert "loop-span" in _profiled_events(work, experimental_config=cfg)
+    assert [r.thread for r in sp.records] == ["loop"]
+
+
+def test_spans_from_many_threads_lose_no_count():
+    """Threads closing spans of one name at once: the totals count every
+    span and the ids are unique (a lost update would break either)."""
+    import sys
+    import threading
+    sp = ttracing.Spans("test-stress", capacity=100_000)
+    n_threads, n_spans = 16, 500
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(n_spans):
+                with sp.span("same"):
+                    pass
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert sp.totals()["same"]["n"] == n_threads * n_spans
+    assert len({r.sid for r in sp.records}) == n_threads * n_spans
+    assert all(r.parent is None for r in sp.records)

@@ -636,3 +636,27 @@ def test_trainer_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(CFG, TrainerConfig(steps=1))
     Trainer(CFG, TrainerConfig(steps=1), device="cpu")
+
+
+def test_trainer_records_a_step_span_with_its_children():
+    """One ``train.step`` span a step, each with the data, gradient,
+    optimizer and sync children, all carrying the step's number as
+    ``history`` has it; ``spans=False`` records none."""
+    tr = Trainer(CFG, TrainerConfig(steps=3, global_batch=2, seq_len=16,
+                                    log_every=1000), device="cpu")
+    tr.train()
+    recs = list(tr.spans.records)
+    steps = [r for r in recs if r.name == "train.step"]
+    assert [r.step for r in steps] == [h["step"] for h in tr.history]
+    for s in steps:
+        kids = [r for r in recs if r.parent == s.sid]
+        assert [k.name for k in kids] == ["train.data", "train.grad",
+                                          "train.optimizer", "train.sync"]
+        assert all(k.step == s.step and s.t0_ns <= k.t0_ns <= k.t1_ns
+                   <= s.t1_ns for k in kids)
+        assert [k.device_s for k in kids] == [None] * 4  # no card here
+    off = Trainer(CFG, TrainerConfig(steps=1, global_batch=2, seq_len=16,
+                                     log_every=1000), device="cpu",
+                  spans=False)
+    off.train()
+    assert list(off.spans.records) == [] and len(off.history) == 1
